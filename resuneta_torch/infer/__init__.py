@@ -1,0 +1,5 @@
+from .sliding import (make_apply_fn, make_seg_ids_fn, predict_patches,
+                      predict_scene, predict_scene_overlap)
+
+__all__ = ["make_apply_fn", "make_seg_ids_fn", "predict_patches",
+           "predict_scene", "predict_scene_overlap"]

@@ -1,0 +1,146 @@
+"""Sliding-window whole-scene inference (resuneta_tpu/infer/sliding.py).
+
+Reference flow (test_ISPRS.py:268-333): non-overlapping chop -> predict ->
+argmax -> row-major reconstruction. Patches go through the model in
+batches; the production path (`make_seg_ids_fn`) uploads uint8 pixels,
+normalizes and argmaxes on the device and brings back uint8 ids only.
+"""
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops.normalize import normalize_rgb
+from ..ops.patches import extract_patches_nonoverlap, reconstruct_from_patches
+
+
+def seg_ids_u8(out):
+    """On-device post head: uint8 class ids of the seg probabilities (a dict
+    or a tensor), or the ids themselves when `out` already holds integer
+    ids (the output of a `make_seg_ids_fn` function)."""
+    seg = out["seg"] if isinstance(out, dict) else out
+    if not seg.is_floating_point():
+        return seg.to(torch.uint8)
+    return seg.argmax(dim=-1).to(torch.uint8)
+
+
+def _to_host(out):
+    if isinstance(out, dict):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    return out.cpu().numpy()
+
+
+def make_apply_fn(model, device=None):
+    """Inference-mode forward on `device` (None means cuda): takes NHWC
+    patches (numpy or tensor), returns the model's NHWC outputs on the
+    device."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+
+    @torch.inference_mode()
+    def apply_fn(x):
+        return model(torch.as_tensor(x).to(dev))
+    return apply_fn
+
+
+def make_seg_ids_fn(model, multitask=True, norm_type=None, device=None):
+    """Forward that returns uint8 class ids, argmaxed on the device. With
+    norm_type set, the input is raw uint8 pixels, uploaded as uint8 (4x less
+    traffic than f32) and normalized on the device."""
+    dev = resolve_device(device)
+    model.to(dev).eval()
+
+    @torch.inference_mode()
+    def fn(x):
+        x = torch.as_tensor(x).to(dev)
+        if norm_type is not None:
+            x = normalize_rgb(x, norm_type)
+        out = model(x)
+        seg = out["seg"] if multitask else out
+        return seg.argmax(dim=-1).to(torch.uint8)
+    return fn
+
+
+def predict_patches(apply_fn, patches, batch_size=32, device_post=None):
+    """Run apply_fn over (N, P, P, C) patches in batches of batch_size,
+    padding the tail batch by repeating its last patch. device_post reduces
+    each batch on the device before the copy to the host. Returns numpy:
+    a dict of arrays for multitask outputs, else an array."""
+    n = patches.shape[0]
+    outs = []
+    for i in range(0, n, batch_size):
+        chunk = patches[i:i + batch_size]
+        pad = batch_size - chunk.shape[0]
+        if pad:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+        out = apply_fn(np.ascontiguousarray(chunk))
+        if device_post is not None:
+            out = device_post(out)
+        out = _to_host(out)
+        if pad:
+            out = {k: v[:-pad] for k, v in out.items()} \
+                if isinstance(out, dict) else out[:-pad]
+        outs.append(out)
+    if isinstance(outs[0], dict):
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    return np.concatenate(outs)
+
+
+def predict_scene(apply_fn, image, patch_size, batch_size=32, multitask=True,
+                  ids_only=False):
+    """Whole-scene segmentation: chop -> predict -> argmax -> reconstruct.
+    Returns (class_map (H', W'), the raw patch predictions, or uint8 patch
+    ids when ids_only, argmaxed on the device)."""
+    image = np.asarray(image)
+    patches = extract_patches_nonoverlap(image, patch_size, order="row")
+    if ids_only:
+        preds = predict_patches(apply_fn, patches, batch_size,
+                                device_post=seg_ids_u8)
+        seg_ids = preds
+    else:
+        preds = predict_patches(apply_fn, patches, batch_size)
+        seg = preds["seg"] if multitask else preds
+        seg_ids = np.argmax(seg, axis=-1)
+    class_map = reconstruct_from_patches(seg_ids, image.shape[0],
+                                         image.shape[1], order="row")
+    return np.asarray(class_map), preds
+
+
+def _grid_starts(extent, patch_size, stride):
+    """Start offsets covering [0, extent) with the last window edge-clamped."""
+    starts = list(range(0, extent - patch_size + 1, stride))
+    if starts[-1] != extent - patch_size:
+        starts.append(extent - patch_size)
+    return starts
+
+
+def predict_scene_overlap(apply_fn, image, patch_size, stride, batch_size=32,
+                          multitask=True):
+    """Overlap-averaged whole-scene segmentation: windows every `stride`
+    pixels, their seg softmax summed into a scene canvas that stays on the
+    device, the class map the argmax of the mean. The scene is cropped to
+    patch_size multiples first, so stride == patch_size is the plain chop.
+    Returns (class_map (H', W') uint8, mean probabilities (H', W', C))."""
+    image = np.asarray(image)
+    Hc = image.shape[0] // patch_size * patch_size
+    Wc = image.shape[1] // patch_size * patch_size
+    image = image[:Hc, :Wc]
+    positions = [(y, x) for y in _grid_starts(Hc, patch_size, stride)
+                 for x in _grid_starts(Wc, patch_size, stride)]
+    patches = np.stack([image[y:y + patch_size, x:x + patch_size]
+                        for y, x in positions])
+
+    canvas = count = None
+    for i in range(0, len(patches), batch_size):
+        out = apply_fn(np.ascontiguousarray(patches[i:i + batch_size]))
+        probs = (out["seg"] if multitask else out).float()
+        if canvas is None:
+            canvas = torch.zeros((Hc, Wc, probs.shape[-1]),
+                                 dtype=torch.float32, device=probs.device)
+            count = torch.zeros((Hc, Wc), dtype=torch.float32,
+                                device=probs.device)
+        for p, (y, x) in zip(probs, positions[i:i + batch_size]):
+            canvas[y:y + patch_size, x:x + patch_size] += p
+            count[y:y + patch_size, x:x + patch_size] += 1.0
+    mean = (canvas / count[..., None]).cpu().numpy()
+    return np.argmax(mean, axis=-1).astype(np.uint8), mean

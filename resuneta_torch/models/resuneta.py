@@ -1,0 +1,304 @@
+"""ResUnet-a d6 multitask model, eval path (resuneta_tpu/models/resuneta.py).
+
+Topology (ResUnet_a/model2.py:14-193):
+
+  stem 1x1 conv 32
+  encoder: RB(32,[1,3,15,31]) -> s2 1x1 64 -> RB(64,[1,3,15,31])
+           -> s2 128 -> RB(128,[1,3,15]) -> s2 256 -> RB(256,[1,3,15])
+           -> s2 512 -> RB(512,[1]) -> s2 1024 -> RB(1024,[1])
+  mid:     PSPPooling(1024) + ReLU
+  decoder: 5 x {nearest-up x2 + 1x1 ConvBN -> Combine(skip) -> ResBlock}
+  final:   Combine(stem) -> PSPPooling(32) + ReLU -> heads
+           seg, bound from x_psp; dist, color from x_comb (pre-PSP)
+
+A ResBlock is identity + the SUM of its dilation branches, each
+BN -> ReLU -> conv(d) -> BN -> ReLU -> conv(d). In eval each BN -> ReLU ->
+3x3 conv segment hands the BN affine to the conv as a prologue; where the
+reference's eval gate holds (C == Cout in {32, 64, 128}, (W*C) % 128 == 0)
+the segment runs as one fused kernel (ops/convseg.py, K1), else as
+x*a + b -> ReLU -> conv in the compute dtype. A BN after a 1x1 conv folds
+into the conv weights (epilogue). PSP pool levels are gated on the
+build-time img_size, not on the input.
+
+Module and parameter names mirror the Flax tree (Conv_0.., ResBlockA_0..,
+BatchNorm_0.., ConvBN_0.., seg1..3) so convert.from_flax maps one onto the
+other. Public layout is NHWC; inside, tensors are NCHW in channels_last
+memory format (the same bytes). Params and BN statistics are float32; the
+compute dtype is `dtype`.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from ..ops import convseg
+from .norm import BatchNorm
+
+
+def _glorot_uniform(shape, generator):
+    """OIHW weights, glorot-uniform over fan_in = I*kh*kw, fan_out = O*kh*kw
+    (flax glorot_uniform on the HWIO kernel)."""
+    o, i, kh, kw = shape
+    limit = math.sqrt(6.0 / (i * kh * kw + o * kh * kw))
+    w = torch.empty(shape)
+    w.uniform_(-limit, limit, generator=generator)
+    return w
+
+
+def _upsample_nearest(x, k):
+    return x if k == 1 else F.interpolate(x, scale_factor=k, mode="nearest")
+
+
+class Conv(nn.Module):
+    """Convolution with the reference's fusion hooks (resuneta.py:54-189):
+
+    * prologue=(a, b): a preceding BN's affine; act(x*a + b) -> conv runs
+      through K1 where convseg.available holds;
+    * epilogue=(a, b): a following BN's affine folded into the weights,
+      conv(x)*a + b == conv with (W*a, bias*a + b), then ReLU if act.
+    """
+
+    def __init__(self, in_features, features, kernel_size=3, dilation=1,
+                 stride=1, dtype=torch.float32, generator=None):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(
+            _glorot_uniform((features, in_features, k, k), generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.kernel_size = k
+        self.dilation = dilation
+        self.stride = stride
+        self.dtype = dtype
+
+    def forward(self, x, prologue=None, epilogue=None, act=True):
+        w, bias, d = self.weight, self.bias, self.dilation
+        if prologue is not None and self.kernel_size == 3:
+            a, b = prologue
+            if convseg.available(x.shape[3], x.shape[1], w.shape[0]):
+                # channels_last NCHW is NHWC-contiguous: no copy
+                y = convseg.bn_act_conv(
+                    x.permute(0, 2, 3, 1).contiguous(), a, b,
+                    w.permute(2, 3, 1, 0), bias, dilation=d, act=act)
+                return y.permute(0, 3, 1, 2)
+            x = x * a.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+            if act:
+                x = torch.relu(x)
+        if epilogue is not None:
+            a, b = epilogue
+            w = w * a[:, None, None, None]
+            bias = bias * a + b
+        dt = self.dtype
+        y = F.conv2d(x.to(dt), w.to(dt, memory_format=torch.channels_last),
+                     stride=self.stride, padding=d * (self.kernel_size // 2),
+                     dilation=d)
+        y = y + bias.to(dt)[:, None, None]
+        if epilogue is not None and act:
+            y = torch.relu(y)
+        return y
+
+
+class ConvBN(nn.Module):
+    """Conv (1x1 by default) -> BN; in eval the BN folds into the conv."""
+
+    def __init__(self, in_features, features, kernel_size=1, stride=1,
+                 dtype=torch.float32, act=False, generator=None):
+        super().__init__()
+        self.act = act
+        self.Conv_0 = Conv(in_features, features, kernel_size, stride=stride,
+                           dtype=dtype, generator=generator)
+        self.BatchNorm_0 = BatchNorm(features, act=act)
+
+    def forward(self, x):
+        return self.Conv_0(x, epilogue=self.BatchNorm_0.affine(), act=self.act)
+
+
+class ResBlockA(nn.Module):
+    """identity + sum over dilations of BN->ReLU->conv(d)->BN->ReLU->conv(d)
+    (resuneta.py:306-341, eval). Branch i owns BatchNorm_{2i}, Conv_{2i},
+    BatchNorm_{2i+1}, Conv_{2i+1}."""
+
+    def __init__(self, features, dilation_rates, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self.dilation_rates = list(dilation_rates)
+        for i, d in enumerate(self.dilation_rates):
+            for j in (2 * i, 2 * i + 1):
+                self.add_module(f"BatchNorm_{j}", BatchNorm(features, act=True))
+                self.add_module(f"Conv_{j}", Conv(
+                    features, features, 3, d, dtype=dtype, generator=generator))
+
+    def forward(self, x):
+        out = x
+        for i in range(len(self.dilation_rates)):
+            b = x
+            for j in (2 * i, 2 * i + 1):
+                bn = getattr(self, f"BatchNorm_{j}")
+                b = getattr(self, f"Conv_{j}")(b, prologue=bn.affine())
+            out = out + b
+        return out
+
+
+class PSPPooling(nn.Module):
+    """Pyramid pooling (model2.py:41-79): max-pool at {1,2,4,8} gated on the
+    build-time width, 1x1 ConvBN to features/4, nearest upsample back,
+    concat with the input, final 1x1 ConvBN. The 1x1 ConvBN runs before the
+    upsample: a 1x1 conv of a nearest-upsampled tensor is the upsampled 1x1
+    conv, the same arithmetic at k*k-fold less work."""
+
+    def __init__(self, features, img_width, dtype=torch.float32, act=False,
+                 generator=None):
+        super().__init__()
+        self.levels = [1, 2] + ([4] if img_width >= 128 else []) + \
+            ([8] if img_width >= 256 else [])
+        quarter = features // 4
+        for i, _ in enumerate(self.levels):
+            self.add_module(f"ConvBN_{i}", ConvBN(
+                features, quarter, dtype=dtype, generator=generator))
+        self.add_module(f"ConvBN_{len(self.levels)}", ConvBN(
+            quarter * len(self.levels) + features, features, dtype=dtype,
+            act=act, generator=generator))
+
+    def forward(self, x):
+        parts = []
+        for i, k in enumerate(self.levels):
+            p = F.max_pool2d(x, k) if k > 1 else x
+            parts.append(_upsample_nearest(getattr(self, f"ConvBN_{i}")(p), k))
+        final = getattr(self, f"ConvBN_{len(self.levels)}")
+        return final(torch.cat(parts + [x], dim=1))
+
+
+class Combine(nn.Module):
+    """relu(dec) ++ skip -> 1x1 ConvBN (model2.py:81-87)."""
+
+    def __init__(self, dec_features, skip_features, features,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(dec_features + skip_features, features,
+                               dtype=dtype, generator=generator)
+
+    def forward(self, dec, skip):
+        return self.ConvBN_0(torch.cat([torch.relu(dec), skip], dim=1))
+
+
+class UpSampleConv(nn.Module):
+    """Nearest x2 -> 1x1 ConvBN (model2.py:89-94), run as ConvBN then the
+    upsample (the same arithmetic, 4x less work)."""
+
+    def __init__(self, in_features, features, dtype=torch.float32,
+                 generator=None):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(in_features, features, dtype=dtype,
+                               generator=generator)
+
+    def forward(self, x):
+        return _upsample_nearest(self.ConvBN_0(x), 2)
+
+
+# encoder: (features, dilations) per level; level 0 follows the stem
+_ENCODER = ((32, (1, 3, 15, 31)), (64, (1, 3, 15, 31)), (128, (1, 3, 15)),
+            (256, (1, 3, 15)), (512, (1,)), (1024, (1,)))
+# decoder: (up-filters, combine/ResBlock filters, dilations), deepest first
+_DECODER = ((256, 512, (1,)), (128, 256, (1, 3, 15)), (64, 128, (1, 3, 15)),
+            (32, 64, (1, 3, 15, 31)), (16, 32, (1, 3, 15, 31)))
+
+
+class ResUnetA(nn.Module):
+    """ResUnet-a d6, eval. Input (N, H, W, in_channels) NHWC, any float
+    dtype; returns NHWC float32 heads: {"seg", "bound", "dist"[, "color"]}
+    when multitasking, else the seg softmax.
+
+    Weights are drawn on the CPU from `generator` (a fresh generator seeded
+    0 when None; the reference's scheme: glorot-uniform convs, zero bias,
+    BN scale 1, bias 0, mean 0, var 1), then moved to `device` (None means
+    cuda, see device.resolve_device)."""
+
+    def __init__(self, num_classes, img_size=256, multitasking=True,
+                 color_head=True, dtype=torch.float32, in_channels=3,
+                 generator=None, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        g = generator if generator is not None else \
+            torch.Generator().manual_seed(0)
+        self.num_classes = num_classes
+        self.img_size = img_size
+        self.multitasking = multitasking
+        self.color_head = color_head
+        self.dtype = dtype
+        kw = dict(dtype=dtype, generator=g)
+
+        self.Conv_0 = Conv(in_channels, 32, 1, **kw)
+        prev = 32
+        for i, (f, dil) in enumerate(_ENCODER):
+            if i:
+                self.add_module(f"Conv_{i}", Conv(prev, f, 1, stride=2, **kw))
+            self.add_module(f"ResBlockA_{i}", ResBlockA(f, dil, **kw))
+            prev = f
+        self.PSPPooling_0 = PSPPooling(1024, img_size, act=True, **kw)
+        skips = [f for f, _ in _ENCODER[:5]][::-1]  # c6 .. c2 channels
+        for i, ((up_f, f, dil), skip) in enumerate(zip(_DECODER, skips)):
+            self.add_module(f"UpSampleConv_{i}", UpSampleConv(prev, up_f, **kw))
+            self.add_module(f"Combine_{i}", Combine(up_f, skip, f, **kw))
+            self.add_module(f"ResBlockA_{6 + i}", ResBlockA(f, dil, **kw))
+            prev = f
+        self.Combine_5 = Combine(32, 32, 32, **kw)
+        self.PSPPooling_1 = PSPPooling(32, img_size, act=True, **kw)
+
+        nc = num_classes
+        if not multitasking:
+            self.Conv_6 = Conv(32, nc, 1, **kw)
+        else:
+            self.seg1 = Conv(32, 32, 3, **kw)
+            self.seg2 = Conv(32, 32, 3, **kw)
+            self.seg3 = Conv(32, nc, 1, **kw)
+            self.Conv_6 = Conv(32, 32, 3, **kw)   # bound
+            self.Conv_7 = Conv(32, nc, 1, **kw)
+            self.Conv_8 = Conv(32, 32, 3, **kw)   # dist
+            self.Conv_9 = Conv(32, 32, 3, **kw)
+            self.Conv_10 = Conv(32, nc, 1, **kw)
+            if color_head:
+                self.Conv_11 = Conv(32, 3, 1, **kw)
+        self.eval()
+        self.to(dev)
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "training mode arrives with the training slice; call .eval()")
+        x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last
+        c1 = x = self.Conv_0(x)
+        skips = []
+        for i in range(len(_ENCODER)):
+            if i:
+                x = getattr(self, f"Conv_{i}")(x)
+            x = getattr(self, f"ResBlockA_{i}")(x)
+            skips.append(x)
+        x = self.PSPPooling_0(x)
+        for i, skip in enumerate(skips[4::-1]):
+            x = getattr(self, f"UpSampleConv_{i}")(x)
+            x = getattr(self, f"Combine_{i}")(x, skip)
+            x = getattr(self, f"ResBlockA_{6 + i}")(x)
+        x_comb = self.Combine_5(x, c1)
+        x_psp = self.PSPPooling_1(x_comb)
+        return self._heads(x_comb, x_psp)
+
+    def _heads(self, x_comb, x_psp):
+        """resuneta.py:659-699; outputs are NHWC float32."""
+        def nhwc(t):
+            return t.permute(0, 2, 3, 1)
+
+        if not self.multitasking:
+            return nhwc(torch.softmax(self.Conv_6(x_psp).float(), dim=1))
+        s = torch.relu(self.seg1(x_psp))
+        s = torch.relu(self.seg2(s))
+        out = {"seg": nhwc(torch.softmax(self.seg3(s).float(), dim=1))}
+        b = torch.relu(self.Conv_6(x_psp))
+        out["bound"] = nhwc(torch.sigmoid(self.Conv_7(b).float()))
+        d = torch.relu(self.Conv_8(x_comb))
+        d = torch.relu(self.Conv_9(d))
+        out["dist"] = nhwc(torch.softmax(self.Conv_10(d).float(), dim=1))
+        if self.color_head:
+            out["color"] = nhwc(torch.sigmoid(self.Conv_11(x_comb).float()))
+        return out

@@ -1,0 +1,102 @@
+"""K1, the fused BN affine -> ReLU -> dilated 3x3 conv segment of the PyTorch
+port (resuneta_torch/ops/convseg.py), against the Pallas kernel it replaces
+(resuneta_tpu/ops/pallas/convseg.py) run in interpret mode on the CPU.
+
+Inputs are drawn with numpy and handed to both frameworks. Both sides round
+z = x*a + b once to f32 (XLA contracts it to a fused multiply-add; the port
+defines z so), then to bf16, so only the order of the f32 sums differs.
+Tolerance: max abs error <= 1e-3 on f32 outputs of magnitude up to ~20
+(observed <= 2e-5); it leaves room for a rare one-ulp bf16 flip of z."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from resuneta_torch.ops import convseg
+from resuneta_tpu.ops.pallas import convseg as jconvseg
+
+ATOL = 1e-3
+
+
+def _inputs(N, H, W, C, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, H, W, C)).astype(np.float32)
+    a = (rng.standard_normal(C) * 0.5 + 1).astype(np.float32)
+    b = (rng.standard_normal(C) * 0.2).astype(np.float32)
+    w = (rng.standard_normal((3, 3, C, C)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal(C) * 0.1).astype(np.float32)
+    return x, a, b, w, bias
+
+
+CASES = [(2, 32, 32, C, d) for C in (32, 64, 128) for d in (1, 3, 15)] + \
+    [(1, 64, 64, 32, 31)]
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("N,H,W,C,d", CASES)
+def test_plain_matches_pallas_interpret(N, H, W, C, d, act):
+    x, a, b, w, bias = _inputs(N, H, W, C, seed=1000 * C + d)
+    want = np.asarray(jconvseg.bn_act_conv_pallas(
+        *map(jnp.asarray, (x, a, b, w, bias)), dilation=d, act=act,
+        interpret=True))
+    calls, launches = convseg.CALLS, convseg.LAUNCHES
+    got = convseg.bn_act_conv(*map(torch.from_numpy, (x, a, b, w, bias)),
+                              dilation=d, act=act)
+    assert got.dtype == torch.float32 and got.shape == (N, H, W, C)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    # a CPU tensor takes the plain version: counted as a call, not a launch
+    assert convseg.CALLS == calls + 1 and convseg.LAUNCHES == launches
+
+
+def test_bf16_input_keeps_dtype():
+    """bf16 x: z is formed from the same values, so the bf16 result is the
+    f32-input result rounded once to bf16."""
+    x, a, b, w, bias = _inputs(1, 16, 16, 32, seed=7)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    args = [torch.from_numpy(t) for t in (a, b, w, bias)]
+    y16 = convseg.bn_act_conv(xb, *args, dilation=3)
+    y32 = convseg.bn_act_conv(xb.float(), *args, dilation=3)
+    assert y16.dtype == torch.bfloat16
+    assert torch.equal(y16, y32.to(torch.bfloat16))
+
+
+def test_zero_padding_is_of_z_not_of_act_b():
+    """Outside the image z is 0, not act(b): with x = 0 and w = 1 the output
+    at a corner sums act(b) over the 4 taps inside the image only."""
+    C = 32
+    x = torch.zeros(1, 8, 8, C)
+    a = torch.ones(C)
+    b = torch.full((C,), 0.5)
+    w = torch.zeros(3, 3, C, C)
+    w[..., 0] = 1.0
+    y = convseg.bn_act_conv(x, a, b, w, torch.zeros(C), dilation=1)
+    assert y[0, 0, 0, 0].item() == pytest.approx(4 * C * 0.5)
+    assert y[0, 4, 4, 0].item() == pytest.approx(9 * C * 0.5)
+
+
+@pytest.mark.parametrize("bad", ["channels", "layout", "weight", "dilation"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, a, b, w, bias = (torch.from_numpy(t)
+                        for t in _inputs(1, 8, 8, 32, seed=3))
+    d = 1
+    if bad == "channels":
+        x, a, b = x[..., :16], a[:16], b[:16]
+        w = w[:, :, :16].contiguous()
+    elif bad == "layout":
+        x = x.permute(0, 2, 1, 3)
+    elif bad == "weight":
+        w = w[:, :, :, :16]
+    else:
+        d = 0
+    with pytest.raises(ValueError):
+        convseg.bn_act_conv(x.contiguous() if bad != "layout" else x,
+                            a, b, w, bias, dilation=d)
+
+
+def test_routing_predicate_is_the_reference_eval_gate():
+    assert convseg.available(256, 32, 32)
+    assert convseg.available(16, 128, 128)
+    assert not convseg.available(32, 256, 256)   # K9 wide tier: opt-in there
+    assert not convseg.available(64, 32, 64)     # C != Cout
+    assert not convseg.available(2, 32, 32)      # (W*C) % 128 != 0
