@@ -8,9 +8,15 @@ Public layouts follow the reference (NHWC). Entry points take `device=None`,
 which means "cuda" and raises when no card is present; pass `device="cpu"`
 to run the plain PyTorch path.
 
-Ported so far: ISPRS sliding-window inference of the multitask ResUnet-a d6
-(`infer.sliding`, `cli.test_isprs`), with the fused BN -> ReLU -> dilated
-3x3 conv segment as a CUDA kernel (`ops.convseg`).
+Ported so far:
+- ISPRS sliding-window inference of the multitask ResUnet-a d6
+  (`infer.sliding`, `cli.test_isprs`), with the fused BN -> ReLU -> dilated
+  3x3 conv segment as a CUDA kernel (`ops.convseg`, K1);
+- the ISPRS multitask train step (`train.make_train_step` with
+  `data.make_device_pipeline`, `losses`, `train.create_train_state`) in the
+  reference's NHWC configuration, with the segment's backward (K2), the JFA
+  distance transform (`ops.distance`, K5) and the Canny boundary labels
+  (`ops.boundary`, K6) as CUDA kernels.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,8 @@ holds). The port's modules carry the Flax module names, so a variable maps
 by its path: conv kernels HWIO -> OIHW `weight`, `bias`, BN `scale`, and
 the batch_stats `mean`, `var` buffers. Any variable the mapping does not
 know, and with a model given any key left unmatched on either side or of
-the wrong shape, raises.
+the wrong shape, raises. A gradient tree maps the same way:
+`from_flax({"params": grads})` gives the port's names and layouts.
 """
 
 from collections.abc import Mapping
@@ -42,7 +43,7 @@ def from_flax(variables, model=None):
         name = _LEAVES.get((coll, leaf))
         if name is None:
             raise ValueError(f"unknown Flax variable {key!r}")
-        arr = np.asarray(val, dtype=np.float32)
+        arr = np.array(val, dtype=np.float32)     # a writable copy
         if name == "weight":
             arr = arr.transpose(3, 2, 0, 1)
         sd[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -1,4 +1,6 @@
 from .isprs import LABEL_DICT, binarize_matrix, class_ids_to_rgb, load_npy_image
+from .pipeline import make_device_pipeline, make_label_head_pipeline
 
 __all__ = ["LABEL_DICT", "binarize_matrix", "class_ids_to_rgb",
-           "load_npy_image"]
+           "load_npy_image", "make_device_pipeline",
+           "make_label_head_pipeline"]

@@ -1,12 +1,42 @@
-"""Host-side evaluation metrics (resuneta_tpu/metrics.py:76-132).
+"""Metrics (resuneta_tpu/metrics.py).
 
-sklearn semantics without sklearn: utils.py:52-57 compute_metrics
-(accuracy, per-class F1, recall, precision, all x100) and
-sklearn.metrics.confusion_matrix, over the sorted union of the labels
-present (or an explicit list).
+Device side, on tensors (metrics.py:18-63): Keras' compiled metrics of the
+train step, categorical accuracy and TruePositives/FalsePositives/
+TrueNegatives/FalseNegatives at threshold 0.5 over every class channel,
+and the MCC from those counts.
+
+Host side (metrics.py:76-132): sklearn semantics without sklearn,
+utils.py:52-57 compute_metrics (accuracy, per-class F1, recall, precision,
+all x100) and sklearn.metrics.confusion_matrix, over the sorted union of the
+labels present (or an explicit list).
 """
 
 import numpy as np
+import torch
+
+
+def categorical_accuracy(y_true, y_pred):
+    """Keras 'accuracy' for softmax outputs against one-hot labels, f32.
+    torch.argmax returns the first maximal index, as the reference's
+    unrolled argmax does (for finite inputs)."""
+    return (y_true.argmax(-1) == y_pred.argmax(-1)).float().mean()
+
+
+def binary_counts(y_true, y_pred, threshold=0.5):
+    """(tp, fp, tn, fn) as f32 scalars, counted over every element."""
+    p = y_pred > threshold
+    t = y_true > threshold
+    return tuple(c.sum().float() for c in (p & t, p & ~t, ~p & ~t, ~p & t))
+
+
+def compute_mcc(tp, tn, fp, fn):
+    """Matthews correlation coefficient from the counts; 0 where a marginal
+    count is 0 (sklearn's semantics, not the reference's NaN)."""
+    tp, tn, fp, fn = (torch.as_tensor(v, dtype=torch.float32)
+                      for v in (tp, tn, fp, fn))
+    denom = torch.sqrt((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn))
+    return torch.where(denom > 0, (tp * tn - fp * fn) / denom.clamp_min(1e-38),
+                       torch.zeros_like(denom))
 
 
 def confusion_matrix(true_labels, predicted_labels, labels=None):

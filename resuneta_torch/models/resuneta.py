@@ -1,4 +1,5 @@
-"""ResUnet-a d6 multitask model, eval path (resuneta_tpu/models/resuneta.py).
+"""ResUnet-a d6 multitask model (resuneta_tpu/models/resuneta.py), eval and
+train mode.
 
 Topology (ResUnet_a/model2.py:14-193):
 
@@ -12,13 +13,21 @@ Topology (ResUnet_a/model2.py:14-193):
            seg, bound from x_psp; dist, color from x_comb (pre-PSP)
 
 A ResBlock is identity + the SUM of its dilation branches, each
-BN -> ReLU -> conv(d) -> BN -> ReLU -> conv(d). In eval each BN -> ReLU ->
-3x3 conv segment hands the BN affine to the conv as a prologue; where the
-reference's eval gate holds (C == Cout in {32, 64, 128}, (W*C) % 128 == 0)
-the segment runs as one fused kernel (ops/convseg.py, K1), else as
-x*a + b -> ReLU -> conv in the compute dtype. A BN after a 1x1 conv folds
-into the conv weights (epilogue). PSP pool levels are gated on the
-build-time img_size, not on the input.
+BN -> ReLU -> conv(d) -> BN -> ReLU -> conv(d). Where the reference's gate
+holds (C == Cout in {32, 64, 128}, (W*C) % 128 == 0) each BN -> ReLU -> 3x3
+conv segment runs fused (ops/convseg.py): in eval K1 on the running
+statistics' affine, in train `FusedSegment` (K1 forward on the batch
+statistics, K2 backward). Elsewhere the segment is x*a + b -> ReLU -> conv
+(eval) or the closed-form BN apply -> conv (train) in the compute dtype.
+
+Train mode is the reference's NHWC configuration, what it runs off the TPU
+(dense trunk off, tail mode "0", segment mode "1", resuneta.py:502-523,
+:642-646, :238): every first BN of a ResBlock's branches normalises the
+block input with ONE shared statistics pass (each still updates its own
+running buffers), the 1x1 ConvBNs use batch statistics, and the heads are
+plain convs. In eval a BN after a 1x1 conv folds into the conv weights
+(epilogue). PSP pool levels are gated on the build-time img_size, not on
+the input.
 
 Module and parameter names mirror the Flax tree (Conv_0.., ResBlockA_0..,
 BatchNorm_0.., ConvBN_0.., seg1..3) so convert.from_flax maps one onto the
@@ -35,7 +44,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import convseg
-from .norm import BatchNorm
+from ..ops.fused_bn import bn_apply, bn_stats
+from .norm import BatchNorm, nhwc
 
 
 def _glorot_uniform(shape, generator):
@@ -55,8 +65,13 @@ def _upsample_nearest(x, k):
 class Conv(nn.Module):
     """Convolution with the reference's fusion hooks (resuneta.py:54-189):
 
-    * prologue=(a, b): a preceding BN's affine; act(x*a + b) -> conv runs
-      through K1 where convseg.available holds;
+    * prologue=(a, b): a preceding BN's affine (eval); act(x*a + b) -> conv
+      runs through K1 where convseg.available holds;
+    * bn_raw=(scale, bias, mean, var): a preceding train-mode BN and its
+      ReLU (resuneta.py:137-155; every such segment of the model has the
+      ReLU); the segment runs as convseg.FusedSegment (K1 + K2) where
+      convseg.available holds, else as the closed-form BN apply -> ReLU ->
+      conv;
     * epilogue=(a, b): a following BN's affine folded into the weights,
       conv(x)*a + b == conv with (W*a, bias*a + b), then ReLU if act.
     """
@@ -73,8 +88,17 @@ class Conv(nn.Module):
         self.stride = stride
         self.dtype = dtype
 
-    def forward(self, x, prologue=None, epilogue=None, act=True):
+    def forward(self, x, prologue=None, epilogue=None, act=True, bn_raw=None):
         w, bias, d = self.weight, self.bias, self.dilation
+        if bn_raw is not None and self.kernel_size == 3:
+            scale, beta, mean, var = bn_raw
+            if convseg.available(x.shape[3], x.shape[1], w.shape[0]):
+                y = convseg.fused_segment(
+                    nhwc(x).contiguous(), scale, beta, mean, var,
+                    w.permute(2, 3, 1, 0), bias, dilation=d)
+                return y.permute(0, 3, 1, 2)
+            x = bn_apply(nhwc(x), scale, beta, mean, var, eps=1e-3,
+                         relu=True).permute(0, 3, 1, 2)
         if prologue is not None and self.kernel_size == 3:
             a, b = prologue
             if convseg.available(x.shape[3], x.shape[1], w.shape[0]):
@@ -101,7 +125,8 @@ class Conv(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv (1x1 by default) -> BN; in eval the BN folds into the conv."""
+    """Conv (1x1 by default) -> BN; in eval the BN folds into the conv, in
+    train it normalises with the conv output's batch statistics."""
 
     def __init__(self, in_features, features, kernel_size=1, stride=1,
                  dtype=torch.float32, act=False, generator=None):
@@ -112,13 +137,16 @@ class ConvBN(nn.Module):
         self.BatchNorm_0 = BatchNorm(features, act=act)
 
     def forward(self, x):
+        if self.training:
+            return self.BatchNorm_0(self.Conv_0(x))
         return self.Conv_0(x, epilogue=self.BatchNorm_0.affine(), act=self.act)
 
 
 class ResBlockA(nn.Module):
     """identity + sum over dilations of BN->ReLU->conv(d)->BN->ReLU->conv(d)
-    (resuneta.py:306-341, eval). Branch i owns BatchNorm_{2i}, Conv_{2i},
-    BatchNorm_{2i+1}, Conv_{2i+1}."""
+    (resuneta.py:306-341, _generic). Branch i owns BatchNorm_{2i}, Conv_{2i},
+    BatchNorm_{2i+1}, Conv_{2i+1}. In train mode every branch's first BN
+    takes the block input's statistics from one shared pass."""
 
     def __init__(self, features, dilation_rates, dtype=torch.float32,
                  generator=None):
@@ -131,12 +159,18 @@ class ResBlockA(nn.Module):
                     features, features, 3, d, dtype=dtype, generator=generator))
 
     def forward(self, x):
+        shared = bn_stats(nhwc(x)) if self.training else None
         out = x
         for i in range(len(self.dilation_rates)):
             b = x
             for j in (2 * i, 2 * i + 1):
                 bn = getattr(self, f"BatchNorm_{j}")
-                b = getattr(self, f"Conv_{j}")(b, prologue=bn.affine())
+                conv = getattr(self, f"Conv_{j}")
+                if self.training:
+                    stats = shared if j == 2 * i else None
+                    b = conv(b, bn_raw=bn(b, stats=stats, return_raw=True))
+                else:
+                    b = conv(b, prologue=bn.affine())
             out = out + b
         return out
 
@@ -146,7 +180,10 @@ class PSPPooling(nn.Module):
     build-time width, 1x1 ConvBN to features/4, nearest upsample back,
     concat with the input, final 1x1 ConvBN. The 1x1 ConvBN runs before the
     upsample: a 1x1 conv of a nearest-upsampled tensor is the upsampled 1x1
-    conv, the same arithmetic at k*k-fold less work."""
+    conv, the same arithmetic at k*k-fold less work. In train mode the BN's
+    batch statistics over the upsampled tensor equal those over the small
+    one (every pixel repeated k*k times leaves mean and E[x^2] unchanged;
+    resuneta.py:384-390), so the order changes only f32 rounding."""
 
     def __init__(self, features, img_width, dtype=torch.float32, act=False,
                  generator=None):
@@ -185,7 +222,9 @@ class Combine(nn.Module):
 
 class UpSampleConv(nn.Module):
     """Nearest x2 -> 1x1 ConvBN (model2.py:89-94), run as ConvBN then the
-    upsample (the same arithmetic, 4x less work)."""
+    upsample (the same arithmetic, 4x less work; in train mode the batch
+    statistics of the upsampled tensor equal the small one's, see
+    PSPPooling)."""
 
     def __init__(self, in_features, features, dtype=torch.float32,
                  generator=None):
@@ -206,9 +245,10 @@ _DECODER = ((256, 512, (1,)), (128, 256, (1, 3, 15)), (64, 128, (1, 3, 15)),
 
 
 class ResUnetA(nn.Module):
-    """ResUnet-a d6, eval. Input (N, H, W, in_channels) NHWC, any float
-    dtype; returns NHWC float32 heads: {"seg", "bound", "dist"[, "color"]}
-    when multitasking, else the seg softmax.
+    """ResUnet-a d6. Input (N, H, W, in_channels) NHWC, any float dtype;
+    returns NHWC float32 heads: {"seg", "bound", "dist"[, "color"]} when
+    multitasking, else the seg softmax. Built in eval mode; `.train()` runs
+    batch statistics and updates the BN running buffers in place.
 
     Weights are drawn on the CPU from `generator` (a fresh generator seeded
     0 when None; the reference's scheme: glorot-uniform convs, zero bias,
@@ -264,9 +304,6 @@ class ResUnetA(nn.Module):
         self.to(dev)
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "training mode arrives with the training slice; call .eval()")
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last
         c1 = x = self.Conv_0(x)
         skips = []

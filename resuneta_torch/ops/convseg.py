@@ -1,19 +1,30 @@
-"""K1: fused BN affine -> ReLU -> dilated 3x3 conv (+ bias), NHWC.
+"""The fused ResBlock branch segment BN -> ReLU -> dilated 3x3 conv, NHWC:
+K1 (forward) and K2 (backward).
 
-    y = conv_{3x3, dilation d, SAME zero pad}(z) + bias,  z = act(x * a + b)
+K1:  y = conv_{3x3, dilation d, SAME zero pad}(z) + bias,  z = act(x * a + b)
 
 z is x*a + b rounded once to f32 (a fused multiply-add, as XLA forms it),
 is zero outside the image (the conv's padding of z, not act(b)) and is
 rounded to bf16 once; the taps are bf16(w); products are summed in f32; the
-bias is added in f32 and y is cast to x's dtype. This is
-the eval-mode ResBlock branch segment (BN running-stats affine -> ReLU ->
-conv), the function of resuneta_tpu/ops/pallas/convseg.py
-bn_act_conv_pallas.
+bias is added in f32 and y is cast to x's dtype. This is the function of
+resuneta_tpu/ops/pallas/convseg.py bn_act_conv_pallas: the eval segment
+with the running-statistics affine, and the train forward with the batch
+statistics' affine.
 
-`bn_act_conv` is the wrapper: on a CUDA tensor it launches the CUDA kernel
-(kernels/csrc/convseg.cu) or raises; only a tensor on the CPU takes the
-plain version `bn_act_conv_reference`. `LAUNCHES` counts kernel launches,
-`CALLS` counts wrapper calls on any device.
+K2 is the one-pass backward of the train segment (convseg.py:387-500,
+_bwd_kernel): from x and the output cotangent g it recomputes z and gives
+dx, the nine weight-gradient taps and the per-channel sums S1, S2, dc, which
+`fold_cotangents` turns into the seven cotangents (convseg.py:699-715).
+`FusedSegment` is the autograd.Function that pairs the two
+(convseg.py:676-727, fused_segment).
+
+`bn_act_conv` and `segment_bwd` are the wrappers: on a CUDA tensor each
+launches its CUDA kernels (kernels/csrc/convseg.cu, convseg_bwd.cu) or
+raises; only a tensor on the CPU takes the plain version
+(`bn_act_conv_reference`, `segment_bwd_reference`). `LAUNCHES` counts K1's
+kernel launches (one a call) and `CALLS` K1 wrapper calls on any device;
+`BWD_LAUNCHES` counts K2's kernel launches (four a call on the card, as the
+CUDA side reports them) and `BWD_CALLS` its wrapper calls.
 """
 
 import contextlib
@@ -26,16 +37,21 @@ from ..kernels import build
 
 LAUNCHES = 0
 CALLS = 0
+BWD_LAUNCHES = 0
+BWD_CALLS = 0
 
 MAX_CHANNELS = 512
 _fn = None
+_bwd_fn = None
 
 
 def available(W, C, Cout):
-    """The model's routing predicate, the reference's default eval gate
-    (resuneta_tpu convseg.pallas_available(bwd=False) without its TPU
-    backend and VMEM-plan checks): C == Cout, C in {32, 64, 128} and
-    (W*C) % 128 == 0."""
+    """The model's routing predicate for the eval and the train segment:
+    the reference's default gate (resuneta_tpu convseg.pallas_available,
+    bwd=False and bwd=True agree with the wide tiers off) without its TPU
+    backend and VMEM-plan checks: C == Cout, C in {32, 64, 128} and
+    (W*C) % 128 == 0. (The reference's 128 % C == 0 also admits C < 32,
+    which no ResBlock of the model has.)"""
     return C == Cout and C in (32, 64, 128) and (W * C) % 128 == 0
 
 
@@ -138,3 +154,162 @@ def bn_act_conv(x, a, b, w, bias, *, dilation, act=True):
         raise RuntimeError(f"convseg kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return y
+
+
+# ------------------------------------------------------------ K2 backward
+
+def segment_affine(gamma, beta, mean, var, eps=1e-3):
+    """(a, b, invstd) of the train segment in _affine's order
+    (convseg.py:650-653): a = γ·invstd, b = β − mean·a. Not bn_affine's
+    β − mean·γ·invstd: the f32 roundings differ."""
+    invstd = torch.rsqrt(var.float() + eps)
+    a = gamma * invstd
+    return a, beta - mean * a, invstd
+
+
+def segment_bwd_reference(x, g, a, b, mean, invstd, w, *, dilation):
+    """The plain PyTorch version of K2, with the TPU kernel's roundings:
+    z_pre = x*a + b rounded once to f32 (as in K1), z = relu(z_pre) and the
+    taps in bf16,
+    g cast to x's dtype and then to bf16 for both products, f32 sums (an
+    f32 convolution_backward of the bf16 values, TF32 off: the products of
+    bf16 values are exact in f32), the ReLU mask from the f32 z_pre,
+    dx = dz_pre·a in x's dtype, dc from g in x's dtype.
+
+    Returns (dx, dw (3, 3, C, Cout) f32, vec (3, C) f32 = [S1, S2, dc])."""
+    d = int(dilation)
+    zp = (x.double() * a.double() + b.double()).float()
+    zb = torch.relu(zp).to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    gx = g.to(x.dtype)
+    gb = gx.to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    wt = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)
+    with no_tf32():
+        dz, dw, _ = torch.ops.aten.convolution_backward(
+            gb, zb, wt, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
+            [True, True, False])
+    dz = torch.where(zp > 0, dz.permute(0, 2, 3, 1),
+                     torch.zeros((), device=x.device))
+    dims = (0, 1, 2)
+    xhat = (x.float() - mean) * invstd
+    vec = torch.stack([dz.sum(dims), (dz * xhat).sum(dims),
+                       gx.float().sum(dims)])
+    return (dz * a).to(x.dtype), dw.permute(2, 3, 1, 0), vec
+
+
+def _check_bwd(x, g, a, b, mean, invstd, w, dilation):
+    if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be (N, H, W, C) bf16 or f32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError(f"g must match x: {tuple(g.shape)} {g.dtype} vs "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("x and g must be contiguous NHWC")
+    C = x.shape[3]
+    if C not in (32, 64, 128):
+        raise ValueError(f"C={C}: the segment backward takes C in "
+                         "{32, 64, 128}")
+    if w.shape != (3, 3, C, C):
+        raise ValueError(f"w must be (3, 3, {C}, {C}), got {tuple(w.shape)}")
+    if any(t.shape != (C,) for t in (a, b, mean, invstd)):
+        raise ValueError("a, b, mean, invstd must be (C,)")
+    if int(dilation) < 1:
+        raise ValueError(f"dilation must be >= 1, got {dilation}")
+    if any(t.device != x.device for t in (g, a, b, mean, invstd, w)):
+        raise ValueError("all operands must be on x's device")
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = build.load("convseg_bwd")
+        ws = lib.convseg_backward_workspace
+        ws.argtypes = [ctypes.c_int] * 4
+        ws.restype = ctypes.c_longlong
+        fn = lib.convseg_backward
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = (ws, fn)
+    return _bwd_fn
+
+
+def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation):
+    """K2: the one-pass backward of the train segment (see module doc).
+
+    x, g: (N, H, W, C) bf16 or f32, contiguous, g in x's dtype; a, b, mean,
+    invstd: (C,) f32; w: (3, 3, C, C) HWIO. C in {32, 64, 128}. Returns
+    (dx in x.dtype, dw (3, 3, C, C) f32, vec (3, C) f32 = [S1, S2, dc])."""
+    global BWD_CALLS, BWD_LAUNCHES
+    _check_bwd(x, g, a, b, mean, invstd, w, dilation)
+    BWD_CALLS += 1
+    if x.device.type == "cpu":
+        return segment_bwd_reference(x, g, a, b, mean, invstd, w,
+                                     dilation=dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    N, H, W, C = x.shape
+    vecs = [t.float().contiguous() for t in (a, b, mean, invstd)]
+    # wT[t, o, c] = w[t, c, o]: the dgrad GEMM's B operand, row-major
+    wT = w.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
+    dx = torch.empty_like(x)
+    dw = torch.empty((3, 3, C, C), dtype=torch.float32, device=x.device)
+    vec = torch.empty((3, C), dtype=torch.float32, device=x.device)
+    ws_floats, fn = _bwd_kernel()
+    work = torch.empty(ws_floats(N, H, W, C), dtype=torch.float32,
+                       device=x.device)
+    for t in (x, g, wT, dx):
+        if t.data_ptr() % 16:
+            raise ValueError("x, g, w and dx must be 16-byte aligned")
+    n = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in vecs),
+                wT.data_ptr(), dx.data_ptr(), dw.data_ptr(), vec.data_ptr(),
+                work.data_ptr(), N, H, W, C, int(dilation),
+                int(x.dtype == torch.bfloat16), ctypes.byref(n), stream)
+    BWD_LAUNCHES += n.value
+    if rc != 0:
+        raise RuntimeError(f"convseg_bwd kernel launch failed: cudaError {rc}")
+    return dx, dw, vec
+
+
+def fold_cotangents(dx, dw, vec, gamma, invstd):
+    """(dx, dW, [S1, S2, dc]) -> the seven cotangents of FusedSegment's
+    inputs (x, γ, β, mean, var, w, bias) (convseg.py:699-715):
+    dγ = S2, dβ = S1, dmean = −γ·invstd·S1, dvar = −½·γ·invstd²·S2."""
+    s1, s2, dc = vec
+    return (dx, s2, s1, -gamma * invstd * s1,
+            -0.5 * gamma * invstd * invstd * s2, dw, dc)
+
+
+class FusedSegment(torch.autograd.Function):
+    """Train-mode BN -> ReLU -> dilated 3x3 conv:
+
+        y = conv_{3x3,d,SAME}(relu((x − mean)·rsqrt(var+eps)·γ + β)) + bias
+
+    forward = K1 on the affine (a, b) of the batch statistics, backward =
+    K2 + fold_cotangents. mean and var come from bn_stats outside (shared by
+    a ResBlock's branches); their cotangents carry on through autograd."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, mean, var, w, bias, dilation, eps):
+        a, b, _ = segment_affine(gamma, beta, mean, var, eps)
+        ctx.save_for_backward(x, gamma, beta, mean, var, w)
+        ctx.dilation, ctx.eps = dilation, eps
+        return bn_act_conv(x, a, b, w, bias, dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, mean, var, w = ctx.saved_tensors
+        a, b, invstd = segment_affine(gamma, beta, mean, var, ctx.eps)
+        dx, dw, vec = segment_bwd(x, g.to(x.dtype).contiguous(), a, b, mean,
+                                  invstd, w, dilation=ctx.dilation)
+        return fold_cotangents(dx, dw, vec, gamma, invstd) + (None,) * 2
+
+
+def fused_segment(x, gamma, beta, mean, var, w, bias, *, dilation, eps=1e-3):
+    """x: (N, H, W, C) contiguous; gamma, beta, mean, var, bias: (C,) f32;
+    w: (3, 3, C, C) HWIO. Returns (N, H, W, C) in x.dtype."""
+    return FusedSegment.apply(x, gamma, beta, mean, var, w, bias, dilation,
+                              eps)

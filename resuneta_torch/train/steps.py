@@ -1,0 +1,110 @@
+"""Train and eval steps, the train_on_batch / test_on_batch equivalents
+(resuneta_tpu/train/steps.py:42-78, :124-198; train_ISPRS.py:115-187).
+
+One step over the batch on the state's device; the metric rows keep the
+reference's names and order (METRICS_MULTITASK, METRICS_SINGLE). The
+reference's `mesh` distribution is not ported: distribution is a later
+slice. The step factories take `device=None`, the card, and raise without
+one; pass device="cpu" for the plain PyTorch path. The batch is moved to
+that device; the state's model must already be there.
+"""
+
+from typing import Dict
+
+import torch
+
+from ..device import resolve_device
+from ..metrics import binary_counts, categorical_accuracy
+
+METRICS_MULTITASK = [
+    "loss", "seg_loss", "bound_loss", "dist_loss", "color_loss",
+    "seg_accuracy", "seg_true_positives", "seg_false_positives",
+    "seg_true_negatives", "seg_false_negatives",
+]
+METRICS_SINGLE = [
+    "loss", "accuracy", "true_positives", "false_positives",
+    "true_negatives", "false_negatives",
+]
+
+
+def _multitask_total(loss_fns, loss_weights, outputs, batch):
+    """Weighted sum over the heads the model produced."""
+    heads = [h for h in ("seg", "bound", "dist", "color") if h in outputs]
+    per_head = {h: loss_fns[h](batch[h], outputs[h]) for h in heads}
+    total = sum(per_head[h] * loss_weights.get(h, 1.0) for h in heads)
+    return total, per_head
+
+
+def _metrics_row(multitasking, total, per_head, seg_pred, seg_true):
+    acc = categorical_accuracy(seg_true, seg_pred)
+    tp, fp, tn, fn = binary_counts(seg_true, seg_pred)
+    if multitasking:
+        zero = torch.zeros((), dtype=total.dtype, device=total.device)
+        vals = [total, per_head["seg"], per_head["bound"], per_head["dist"],
+                per_head.get("color", zero), acc, tp, fp, tn, fn]
+    else:
+        vals = [total, acc, tp, fp, tn, fn]
+    return torch.stack([v.detach().float() for v in vals])
+
+
+def _losses(loss_fns, loss_weights, multitasking, outputs, batch):
+    if multitasking:
+        return _multitask_total(loss_fns, loss_weights, outputs, batch)
+    return loss_fns["seg"](batch["seg"], outputs), None
+
+
+def _on(batch, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
+                    preprocess=None, device=None):
+    """Returns train_step(state, batch) -> (state, metrics_row).
+
+    batch: 'image' plus the label heads ('seg' [+ 'bound', 'dist',
+    'color']), or the raw uint8 batch that `preprocess`
+    (data.pipeline.make_device_pipeline) turns into one on the device. The
+    step runs the model in train mode (batch statistics, running buffers
+    updated in place), backpropagates the weighted total, applies the
+    optimizer and returns the row of the forward's metrics. The parameters'
+    gradients stay in `.grad` until the next step."""
+    dev = resolve_device(device)
+
+    def train_step(state, batch):
+        batch = preprocess(batch) if preprocess is not None else _on(batch,
+                                                                     dev)
+        model = state.model
+        model.train()
+        outputs = model(batch["image"])
+        total, per_head = _losses(loss_fns, loss_weights, multitasking,
+                                  outputs, batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+        seg_pred = outputs["seg"] if multitasking else outputs
+        return state, _metrics_row(multitasking, total, per_head,
+                                   seg_pred.detach(), batch["seg"])
+
+    return train_step
+
+
+def make_eval_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
+                   preprocess=None, device=None):
+    """test_on_batch: eval mode (running statistics), no gradients."""
+    dev = resolve_device(device)
+
+    def eval_step(state, batch):
+        batch = preprocess(batch) if preprocess is not None else _on(batch,
+                                                                     dev)
+        model = state.model
+        model.eval()
+        with torch.no_grad():
+            outputs = model(batch["image"])
+            total, per_head = _losses(loss_fns, loss_weights, multitasking,
+                                      outputs, batch)
+            seg_pred = outputs["seg"] if multitasking else outputs
+            return _metrics_row(multitasking, total, per_head, seg_pred,
+                                batch["seg"])
+
+    return eval_step

@@ -1,17 +1,22 @@
-"""Tests of the PyTorch port that need a CUDA card: the K1 kernel against its
-plain version, and the 64 px model on the card against the CPU plain path.
-They skip without a card. This file imports no JAX, so it runs where only
-PyTorch is installed, without the JAX-importing tests/conftest.py:
+"""Tests of the PyTorch port that need a CUDA card: the kernels (K1, K2, K5,
+K6) against their plain versions, the wrappers raising on what their
+kernels do not take, and the 64 px model and train step on the card against
+the CPU plain path. They skip without a card. This file imports no JAX, so
+it runs where only PyTorch is installed, without the JAX-importing
+tests/conftest.py:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from resuneta_torch.models import ResUnetA
-from resuneta_torch.ops import convseg
+from resuneta_torch.ops import boundary, convseg, distance
 
 
 @pytest.fixture
@@ -85,3 +90,121 @@ def test_model_on_card_matches_cpu_plain_path(cuda):
     assert convseg.LAUNCHES - launches == 44
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=5e-3)
+
+
+# ------------------------------------------------------------ K2 backward
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,H,W,C,d", [(2, 32, 32, 32, 31),
+                                       (2, 16, 16, 128, 15),
+                                       (3, 24, 40, 64, 3),
+                                       (1, 64, 64, 32, 1)])
+def test_k2_matches_plain(cuda, N, H, W, C, d, dtype):
+    """dx, dW and [S1, S2, dc]: only the order of the f32 sums differs. dx
+    in f32 within 1e-4 of its largest magnitude; in bf16 a one-ulp flip of
+    the final rounding (2^-7 relative). dW and the sums within 1e-4 of
+    their largest magnitude."""
+    x, a, b, w, _ = _inputs(N, H, W, C, C + d, cuda)
+    rng = np.random.default_rng(d)
+    g = torch.from_numpy(rng.standard_normal((N, H, W, C)).astype(
+        np.float32)).to(cuda, dtype)
+    x = x.to(dtype)
+    mean = torch.from_numpy(rng.standard_normal(C).astype(np.float32) * 0.1
+                            ).to(cuda)
+    invstd = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)
+                              ).to(cuda)
+    launches = convseg.BWD_LAUNCHES
+    got = convseg.segment_bwd(x, g, a, b, mean, invstd, w, dilation=d)
+    torch.cuda.synchronize()
+    assert convseg.BWD_LAUNCHES == launches + 4     # dgrad, wgrad, 2 sums
+    want = convseg.segment_bwd_reference(x, g, a, b, mean, invstd, w,
+                                         dilation=d)
+    assert got[0].dtype == dtype and got[1].shape == (3, 3, C, C)
+    for k, (gt, wt) in enumerate(zip(got, want)):
+        gt, wt = gt.float(), wt.float()
+        scale = wt.abs().max().item()
+        rtol = 2 ** -7 if (k == 0 and dtype == torch.bfloat16) else 0
+        torch.testing.assert_close(gt, wt, rtol=rtol, atol=1e-4 * scale)
+
+
+# ---------------------------------------------------- K5 and K6, labels
+
+def _blob_planes(n, size, classes, seed):
+    """n * classes one-hot int32 planes of Voronoi blobs."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size[0], :size[1]]
+    ids = np.empty((n,) + size, np.int64)
+    for k in range(n):
+        pts = rng.uniform(0, max(size), (12, 2))
+        d2 = (yy[..., None] - pts[:, 0]) ** 2 + (xx[..., None] - pts[:, 1]) ** 2
+        ids[k] = rng.integers(0, classes, 12)[np.argmin(d2, axis=-1)]
+    p = np.eye(classes, dtype=np.int32)[ids].transpose(0, 3, 1, 2)
+    return p.reshape((-1,) + size)
+
+
+def _label_planes(size, seed):
+    rng = np.random.default_rng(seed)
+    return np.ascontiguousarray(np.concatenate([
+        _blob_planes(2, size, 5, seed),
+        (rng.random((3,) + size) < 0.5).astype(np.int32),
+        (rng.random((2,) + size) < 0.03).astype(np.int32),
+        np.zeros((1,) + size, np.int32), np.ones((1,) + size, np.int32)]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [(64, 64), (256, 256), (48, 80)])
+@pytest.mark.parametrize("op", ["k5", "k6"])
+def test_label_kernels_are_bit_identical(cuda, op, size):
+    p = torch.from_numpy(_label_planes(size, sum(size))).to(cuda)
+    mod = distance if op == "k5" else boundary
+    fn, ref = ((distance.distance_transform_edt,
+                distance.distance_transform_edt_reference) if op == "k5"
+               else (boundary.boundary_label,
+                     boundary.boundary_label_reference))
+    launches = mod.LAUNCHES
+    got = fn(p)
+    torch.cuda.synchronize()
+    # K5: one launch a JFA pass, plus the seeds' and the distances'
+    assert mod.LAUNCHES == launches + (
+        len(distance.jfa_steps(*size)) + 2 if op == "k5" else 1)
+    assert torch.equal(got, ref(p))
+    assert torch.equal(got.cpu(), ref(p.cpu()))
+
+
+@pytest.mark.gpu
+def test_new_wrappers_raise_instead_of_falling_back(cuda):
+    with pytest.raises(ValueError, match="K8"):
+        boundary.boundary_label(torch.zeros((1, 400, 400), dtype=torch.int32,
+                                            device=cuda))
+    with pytest.raises(ValueError, match="K7"):
+        distance.distance_transform_edt(
+            torch.zeros((1, 800, 800), dtype=torch.int32, device=cuda))
+    for fn in (boundary.boundary_label, distance.distance_transform_edt):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 8, 8), device=cuda))          # f32 planes
+    x, a, b, w, _ = _inputs(1, 8, 8, 32, 0, cuda)
+    with pytest.raises(ValueError):                           # g's dtype
+        convseg.segment_bwd(x, x.to(torch.bfloat16), a, b, a, b, w,
+                            dilation=1)
+    x, a, b, w, _ = _inputs(1, 8, 8, 256, 0, cuda)
+    with pytest.raises(ValueError):                           # C = 256
+        convseg.segment_bwd(x, x, a, b, a, b, w, dilation=1)
+
+
+# ------------------------------------------------------------ train step
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu_plain_path(cuda):
+    """64 px, bs 2, f32, TF32 off, through chip_smoke.step_card_vs_cpu (the
+    one copy of this comparison): 44 K1 launches, 44 K2 calls of 4
+    launches, one K5 call of 11 launches at 64^2 and one K6 launch per
+    step; the card against the CPU plain path within chip_smoke.STEP_TOL
+    (the losses, all gradients, the heads, the last decoder ResBlock's
+    leaves that K2 gives, and every BN running buffer)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    got = chip_smoke.step_card_vs_cpu()
+    assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K5": 11, "K6": 1}
+    assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])

@@ -1,0 +1,133 @@
+#!/usr/bin/env python3
+"""Where the time of one train step of the PyTorch port goes on the card:
+torch.profiler over warm steps of the ISPRS multitask step (ResUnet-a d6,
+5 classes, 256 px, bf16, Adam 1e-4, Tanimoto on the four heads, seeded
+random weights, uint8 patches and class ids through make_device_pipeline),
+summed by device kernel.
+
+    python3 tools/torch_profile_train.py [--batch 16] [--iters 5]
+
+Prints one JSON line: the card (nvidia-smi name and power limit), the host
+wall time per step (without the profiler, and under it), the device busy
+time per step (sum of kernel times, under the profiler), the busy share,
+the time of each of the port's kernels (K1 convseg_kernel, K2
+dgrad/wgrad/reduce, K5 jfa_*, K6 canny_kernel), cuDNN/CUTLASS convolutions
+and GEMMs, the top kernels by total device time, and the host operators by
+self CPU time (calls and ms per step).
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+GROUPS = {
+    "K1 convseg_kernel": lambda k: "convseg_kernel" in k,
+    "K2 dgrad_kernel": lambda k: "dgrad_kernel" in k,
+    "K2 wgrad_kernel": lambda k: "wgrad_kernel" in k,
+    "K2 reduce_rows": lambda k: "reduce_rows" in k,
+    "K5 jfa": lambda k: "jfa_" in k,
+    "K6 canny_kernel": lambda k: "canny_kernel" in k,
+}
+
+
+def _library_conv(k):
+    low = k.lower()
+    return any(s in low for s in ("conv", "xmma", "implicit", "gemm", "sm90",
+                                  "cutlass", "cudnn", "wgrad", "dgrad")) \
+        and not any(g(k) for g in GROUPS.values())
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--batch", type=int, default=16)
+    parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--top", type=int, default=20)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+
+    from resuneta_torch import losses
+    from resuneta_torch.data import make_device_pipeline
+    from resuneta_torch.models import ResUnetA
+    from resuneta_torch.train import create_train_state, make_train_step
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    model = ResUnetA(5, img_size=256, multitasking=True, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, "adam", 1e-4)
+    step = make_train_step(losses.make_losses("tanimoto"),
+                           {h: 1.0 for h in ("seg", "bound", "dist", "color")},
+                           True, preprocess=make_device_pipeline(5, 1))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 5, (args.batch, 8, 8)).repeat(32, 1).repeat(32, 2)
+    raw = {"image_u8": rng.integers(0, 256, (args.batch, 256, 256, 3),
+                                    dtype=np.uint8),
+           "label_ids": ids.astype(np.uint8),
+           "aug": rng.integers(0, 5, args.batch)}
+    for _ in range(3):
+        state, row = step(state, raw)
+    torch.cuda.synchronize()
+    # the wall time without the profiler, whose host overhead is large here
+    t0 = time.time()
+    for _ in range(args.iters):
+        state, row = step(state, raw)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / args.iters
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(args.iters):
+            state, row = step(state, raw)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.time() - t0) * 1e3 / args.iters
+
+    kernels = {}
+    for ev in prof.events():
+        # device-side user ranges ("Optimizer.step#Adam.step") span kernels
+        # already counted: kernels only
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                "#" not in ev.name:
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
+                ev.device_time_total / 1e3
+    busy = sum(kernels.values()) / args.iters
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+
+    def share(pred):
+        return sum(v for k, v in kernels.items() if pred(k)) / args.iters
+
+    groups = {name: share(pred) for name, pred in GROUPS.items()}
+    conv = share(_library_conv)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_top = [[e.key[:60], e.count / args.iters,
+                 e.self_cpu_time_total / 1e3 / args.iters]
+                for e in host[:args.top]]
+    print(json.dumps({
+        "card": smi, "batch": args.batch, "iters": args.iters,
+        "wall_ms_per_step": wall_ms,
+        "wall_ms_per_step_under_profiler": prof_wall_ms,
+        "device_busy_ms_per_step": busy, "busy_share": busy / wall_ms,
+        "port_kernels_ms_per_step": groups,
+        "library_conv_gemm_ms_per_step": conv,
+        "rest_ms_per_step": busy - sum(groups.values()) - conv,
+        "top_kernels_ms_per_step": [[k[:90], v / args.iters]
+                                    for k, v in ranked[:args.top]],
+        "host_ops_calls_and_self_cpu_ms_per_step": host_top,
+        "host_self_cpu_ms_per_step": sum(
+            e.self_cpu_time_total for e in host) / 1e3 / args.iters,
+        "n_kernel_names": len(kernels)}))
+
+
+if __name__ == "__main__":
+    main()
