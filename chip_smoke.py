@@ -26,22 +26,34 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             version and one cuDNN convolution_backward (dgrad + wgrad +
             bias, no BN sums) of the same precomputed bf16 z and g
             (library_ms).
-5. k5, k6 - the JFA distance transform and the Canny boundary kernels
+5. k3, k4 - K3 (the 1x1 conv over concat parts) and K4 (max pool -> 1x1
+            conv), forward and backward, against their plain versions at
+            the 12 and 3 shapes of the dense-trunk train step (batch 16,
+            bf16; K4's inputs with planted exact ties); times each way
+            beside the bound, the plain version and the library calls: a
+            cuDNN 1x1 conv and convolution_backward of the materialised
+            concat/upsample (K3), F.max_pool2d then that conv, two calls,
+            whose backward routes a tie to one element (K4).
+6. k5, k6 - the JFA distance transform and the Canny boundary kernels
             against their plain versions, bit for bit, on the 80 planes of
             256^2 a 16 x 5-class batch gives them (Voronoi blobs, uniform
             noise, an all-zero and an all-one plane); no PyTorch call
             computes either, so library_ms is null.
-6. train  - the ISPRS multitask train step at full width (bf16, batch 16,
+7. train  - the ISPRS multitask train step at full width (bf16, batch 16,
             256 px, Adam 1e-4, Tanimoto on the four heads, uint8 patches and
-            Voronoi-blob class ids through make_device_pipeline): per
-            step 44 K1 launches, 44 K2 calls of 4 launches, one K5 call of
-            13 launches and one K6 launch; finite metric rows; the loss
-            after 10 steps on one batch below the first step's. Times the
-            warm steps (median, with a synchronise). Then one 64 px, bs 2,
-            f32 step, card against the CPU plain path, beside the CPU with
-            one thread against many (step_card_vs_cpu; the card's step
-            test in tests/test_torch_gpu.py runs the same function).
-7. kernels line, then the last line {"ok": true, "device": {...}}.
+            Voronoi-blob class ids through make_device_pipeline) in the
+            dense-trunk routing, the card's default: per step 44 K1
+            launches, 44 K2 calls of 4 launches, 12 K3 calls each way (1
+            and 3 launches a call), 3 K4 calls each way (likewise), one K5
+            call of 13 launches and one K6 launch; finite metric rows; the
+            loss after 10 steps on one batch below the first step's. Times
+            the warm steps (median, with a synchronise). Then 3 steps of
+            the NHWC routing (dense_trunk=False: no K3, no K4), and one
+            64 px, bs 2, f32 dense-trunk step, card against the CPU plain
+            path, beside the CPU with one thread against many
+            (step_card_vs_cpu; the card's step test in
+            tests/test_torch_gpu.py runs the same function).
+8. kernels line, then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is false
 or the package is not beside this file.
@@ -77,12 +89,13 @@ SEG_ATOL = 1e-2
 TRAIN_BATCH = 16
 TRAIN_STEPS = 10
 HEADS = ("seg", "bound", "dist", "color")
-# K2 against its plain version, on the seven cotangents: dx (bf16) within
-# one bf16 ulp (2^-7 relative) plus 1e-3 of its largest magnitude; the
-# others (dW and what the BN sums fold into) within 1e-3 of their largest
-# magnitude (f32 sums over up to 10^6 pixels in another order)
-K2_RTOL = 2 ** -7
-K2_ATOL_OF_MAX = 1e-3
+# K2, K3 and K4 against their plain versions (check_close): a bf16 result
+# (K2's dx; K3's and K4's y and dx) within one bf16 ulp (2^-7 relative)
+# plus 1e-3 of its largest magnitude; the f32 ones (dW, dbias and what K2's
+# BN sums fold into) within 1e-3 of their largest magnitude (f32 sums over
+# up to 10^6 pixels in another order)
+BF16_ULP = 2 ** -7
+ATOL_OF_MAX = 1e-3
 # non-tensor-core peak (the 67 TFLOP/s f32 figure of the same data sheet),
 # the rate the integer work of K5 and K6 is held against
 PEAK_SCALAR_OPS = 67e12
@@ -96,14 +109,46 @@ PEAK_SCALAR_OPS = 67e12
 # and the BN statistics come from the forward, so none of those sees K2:
 # each leaf of the last decoder ResBlock (C = 32, eight fused segments:
 # conv weights and biases from K2's dW and dc, BN scales and offsets from
-# its S1 and S2) is held on its own, within 0.1 relative L2: twice the
-# card's reading (0.048 on an H100) and 2.7x what the CPU alone shows
-# between one thread and eight (0.037); a K2 that dropped dW reads 1
+# its S1 and S2) is held on its own, within 0.1 relative L2: 1.6x the
+# card's reading on the dense trunk (0.061 on an H100; 0.048 in the NHWC
+# routing) and 2.4x what the CPU alone shows between one thread and eight
+# (0.042); a K2 that dropped dW reads 1. Each leaf of Combine_5 and
+# PSPPooling_1, whose conv weights come straight from K3's and K4's dW
+# after the heads, within 0.06: twice the card's reading (0.0305) and 2.6x
+# the CPU's one thread against eight (0.0229); a K3 or K4 whose dW is 10%
+# off reads 0.1 there, a K4 whose dx is zero 0.095 (the conv biases feed
+# a BN, so their gradient is 0 and cannot show dbias: the k3 and k4 phases
+# hold it)
 STEP_TOL = {"loss_rel": 2e-3, "grads_rel_l2": 0.1, "heads_rel_l2": 3e-2,
-            "bn_running_rel_l2": 5e-3, "last_block_rel_l2": 0.1}
+            "bn_running_rel_l2": 5e-3, "last_block_rel_l2": 0.1,
+            "dense_tail_rel_l2": 0.06}
 HEAD_LEAVES = ("seg1", "seg2", "seg3", "Conv_6", "Conv_7", "Conv_9",
                "Conv_10", "Conv_11")
 LAST_BLOCK = "ResBlockA_10"
+# the leaves K3's and K4's backward feed straight after the heads
+DENSE_TAIL = ("Combine_5", "PSPPooling_1")
+# K3's 12 calls on the dense-trunk train step at 256 px: (name, parts as
+# (cin, input H = W, act, ups, stride), cout); K4's 3: (name, C, H, cout, k)
+K3_CALLS = (
+    ("Conv_1 s2", ((32, 256, False, 1, 2),), 64),
+    ("Conv_2 s2", ((64, 128, False, 1, 2),), 128),
+    ("Conv_3 s2", ((128, 64, False, 1, 2),), 256),
+    ("UpSampleConv_2", ((256, 32, False, 1, 1),), 64),
+    ("Combine_2", ((64, 32, True, 2, 1), (128, 64, False, 1, 1)), 128),
+    ("UpSampleConv_3", ((128, 64, False, 1, 1),), 32),
+    ("Combine_3", ((32, 64, True, 2, 1), (64, 128, False, 1, 1)), 64),
+    ("UpSampleConv_4", ((64, 128, False, 1, 1),), 16),
+    ("Combine_4", ((16, 128, True, 2, 1), (32, 256, False, 1, 1)), 32),
+    ("Combine_5", ((32, 256, True, 1, 1), (32, 256, False, 1, 1)), 32),
+    ("PSPPooling_1 level 1", ((32, 256, False, 1, 1),), 8),
+    ("PSPPooling_1 projection",
+     ((8, 256, False, 1, 1), (8, 128, False, 2, 1), (8, 64, False, 4, 1),
+      (8, 32, False, 8, 1), (32, 256, False, 1, 1)), 32),
+)
+K4_CALLS = tuple((f"PSPPooling_1 level {k}", 32, 256, 8, k) for k in (2, 4, 8))
+TOLERANCE = (f"bf16 results: |err| <= {ATOL_OF_MAX}*max|plain| + "
+             f"{BF16_ULP}*|plain|; f32 ones: {ATOL_OF_MAX}*max|plain|")
+NHWC_STEPS = 3
 
 
 def emit(obj):
@@ -144,12 +189,30 @@ def phase_build(build):
     return smi
 
 
+def check_close(name, got, want):
+    """got against want within ATOL_OF_MAX of want's largest magnitude,
+    plus one ulp of a bf16 result; returns the largest absolute error."""
+    rtol = BF16_ULP if got.dtype == torch.bfloat16 else 0
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    lim = ATOL_OF_MAX * want.abs().max() + rtol * want.abs()
+    if not torch.isfinite(got).all() or not bool(torch.all(err <= lim)):
+        fail(f"{name} disagrees with its plain version: max abs err "
+             f"{err.max().item()}")
+    return err.max().item()
+
+
+def bound(flops, nbytes):
+    """The least time (ms) the card could take, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
 def k1_bound(N, H, W, C, itemsize=2):
     flops = 2 * 9 * C * C * H * W * N
     nbytes = 2 * N * H * W * C * itemsize + 9 * C * C * 4 + 4 * C * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return (*bound(flops, nbytes), flops, nbytes)
 
 
 def phase_k1(convseg, F):
@@ -284,9 +347,7 @@ def k2_bound(N, H, W, C):
     bf16, w read in bf16 and dW written in f32, the (3, C) sums."""
     flops = 4 * 9 * C * C * H * W * N
     nbytes = 3 * N * H * W * C * 2 + 9 * C * C * (2 + 4) + 7 * C * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    return (*bound(flops, nbytes), flops, nbytes)
 
 
 def phase_k2(convseg):
@@ -315,18 +376,9 @@ def phase_k2(convseg):
                 *convseg.segment_bwd_reference(*args, dilation=d), gamma,
                 invstd)
             torch.cuda.synchronize()
-            max_err = 0.0
-            for k, (gt, wt) in enumerate(zip(got, want)):
-                gt, wt = gt.float(), wt.float()
-                err = (gt - wt).abs()
-                lim = K2_ATOL_OF_MAX * wt.abs().max() + \
-                    (K2_RTOL * wt.abs() if k == 0 else 0)
-                if not torch.isfinite(gt).all() or not bool(
-                        torch.all(err <= lim)):
-                    fail(f"K2 output {k} disagrees with its plain version "
-                         f"at C={C} {S}x{S} d={d}: max abs err "
-                         f"{err.max().item()}")
-                max_err = max(max_err, err.max().item())
+            max_err = max(check_close(
+                f"K2 output {k} at C={C} {S}x{S} d={d}", gt, wt)
+                for k, (gt, wt) in enumerate(zip(got, want)))
 
             # library yardstick: cuDNN's dgrad + wgrad + bias of the same
             # precomputed bf16 z and g (no BN sums, no mask, no dx scaling)
@@ -345,8 +397,7 @@ def phase_k2(convseg):
             bound_ms, bound_by, flops, nbytes = k2_bound(N, S, S, C)
             row = {"phase": "k2", "N": N, "H": S, "W": S, "C": C, "d": d,
                    "max_abs_err": max_err,
-                   "tolerance": f"|err| <= {K2_ATOL_OF_MAX}*max|plain| "
-                                f"(+ {K2_RTOL}*|plain| for dx)",
+                   "tolerance": TOLERANCE,
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -354,6 +405,177 @@ def phase_k2(convseg):
             emit(row)
             rows.append(row)
             del x, gr, got, want, z, gl
+    return rows
+
+
+def k3_work(parts, cout, N, H):
+    """(fwd flops, fwd bytes, bwd flops, bwd bytes) of one K3 call at
+    output H x H, bf16: each input element the function needs read once
+    (a strided part's read pixels only, but its dx written in full), each
+    output written once, W in bf16, dW and the sums in f32. An upsampled
+    part's product is counted at its own resolution."""
+    flops = nread = nfull = 0
+    for cin, h, _, k, s in parts:
+        pix = N * (H // k) ** 2 if s == 1 else N * H * H
+        flops += 2 * pix * cin * cout
+        nread += pix * cin
+        nfull += N * h * h * cin
+    cin_all = sum(p[0] for p in parts)
+    out = N * H * H * cout
+    w_bytes = cin_all * cout * 2
+    fwd_bytes = (nread + out) * 2 + w_bytes + cout * 4
+    bwd_bytes = (nread + out + nfull) * 2 + w_bytes + (cin_all + 1) * \
+        cout * 4
+    return flops, fwd_bytes, 2 * flops, bwd_bytes
+
+
+def phase_k3(densemm, F):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = []
+    for name, parts, cout in K3_CALLS:
+        N = TRAIN_BATCH
+        s0 = parts[0][4]
+        H = parts[0][1] // s0 * parts[0][3]
+        xs = [torch.randn((N, h, h, c), generator=g, device="cuda").to(
+            torch.bfloat16) for c, h, _, _, _ in parts]
+        cin = sum(p[0] for p in parts)
+        w = torch.randn((cin, cout), generator=g, device="cuda") / cin ** 0.5
+        bias = torch.randn(cout, generator=g, device="cuda") * 0.1
+        spec = {"acts": [p[2] for p in parts], "ups": [p[3] for p in parts],
+                "strides": [p[4] for p in parts]}
+        gr = torch.randn((N, H, H, cout), generator=g, device="cuda").to(
+            torch.bfloat16)
+
+        y = densemm.dense_mm_fwd(xs, w, bias, **spec)
+        got = densemm.dense_mm_bwd(xs, gr, w, **spec)
+        torch.cuda.synchronize()
+        err = check_close(f"K3 {name} y", y,
+                          densemm.dense_mm_reference(xs, w, bias, **spec))
+        want = densemm.dense_mm_bwd_reference(xs, gr, w, **spec)
+        for p, (dx, wdx) in enumerate(zip(got[0], want[0])):
+            err = max(err, check_close(f"K3 {name} dx_{p}", dx, wdx))
+        for k, lab in ((1, "dW"), (2, "dbias")):
+            err = max(err, check_close(f"K3 {name} {lab}", got[k], want[k]))
+
+        # library yardstick: the concat and upsample materialised, then one
+        # cuDNN 1x1 conv and its convolution_backward
+        cat = torch.cat([
+            densemm.upsample_nearest(torch.relu(x) if a else x, k)
+            for x, (_, _, a, k, _) in zip(xs, parts)], dim=3).permute(
+                0, 3, 1, 2)
+        wl = w.t().to(torch.bfloat16)[:, :, None, None].contiguous(
+            memory_format=torch.channels_last)
+        bl = bias.to(torch.bfloat16)
+        gl = gr.permute(0, 3, 1, 2)
+        st = [s0, s0]
+        fwd_ms = cuda_ms(lambda: densemm.dense_mm_fwd(xs, w, bias, **spec),
+                         reps=10)
+        bwd_ms = cuda_ms(lambda: densemm.dense_mm_bwd(xs, gr, w, **spec),
+                         reps=10)
+        lib_fwd = cuda_ms(lambda: F.conv2d(cat, wl, bl, stride=s0), reps=10)
+        lib_bwd = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gl, cat, wl, [cout], st, [0, 0], [1, 1], False, [0, 0], 1,
+            [True, True, True]), reps=10)
+        plain_fwd = cuda_ms(lambda: densemm.dense_mm_reference(
+            xs, w, bias, **spec), reps=3, warmup=1)
+        plain_bwd = cuda_ms(lambda: densemm.dense_mm_bwd_reference(
+            xs, gr, w, **spec), reps=3, warmup=1)
+        ff, fb, bf, bb = k3_work(parts, cout, N, H)
+        b_fwd, by_fwd = bound(ff, fb)
+        b_bwd, by_bwd = bound(bf, bb)
+        row = {"phase": "k3", "call": name, "N": N, "H": H, "cout": cout,
+               "parts": [list(p) for p in parts], "max_abs_err": err,
+               "tolerance": TOLERANCE,
+               "ms_fwd": fwd_ms, "ms_bwd": bwd_ms,
+               "plain_ms_fwd": plain_fwd, "plain_ms_bwd": plain_bwd,
+               "library_ms_fwd": lib_fwd, "library_ms_bwd": lib_bwd,
+               "bound_ms_fwd": b_fwd, "bound_by_fwd": by_fwd,
+               "bound_ms_bwd": b_bwd, "bound_by_bwd": by_bwd,
+               "gflop": (ff + bf) / 1e9, "mbytes": (fb + bb) / 1e6,
+               "calls_per_step": 1}
+        emit(row)
+        rows.append(row)
+        del xs, y, got, want, cat, gl, gr
+    return rows
+
+
+def phase_k4(poolconv, F):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    rows = []
+    for name, C, S, cout, k in K4_CALLS:
+        N = TRAIN_BATCH
+        x = torch.randn((N, S, S, C), generator=g, device="cuda")
+        # planted exact ties: half the channels on a grid of 1/4, so most
+        # of their windows hold their max more than once
+        x[..., :C // 2] = torch.round(x[..., :C // 2] * 4) / 4
+        x = x.to(torch.bfloat16)
+        w = torch.randn((C, cout), generator=g, device="cuda") / C ** 0.5
+        bias = torch.randn(cout, generator=g, device="cuda") * 0.1
+        gr = torch.randn((N, S // k, S // k, cout), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        y = poolconv.pool_conv_fwd(x, w, bias, k=k)
+        got = poolconv.pool_conv_bwd(x, gr, w, k=k)
+        torch.cuda.synchronize()
+        err = check_close(f"K4 k={k} y", y,
+                          poolconv.pool_conv_reference(x, w, bias, k=k))
+        want = poolconv.pool_conv_bwd_reference(x, gr, w, k=k)
+        for i, lab in enumerate(("dx", "dW", "dbias")):
+            err = max(err, check_close(f"K4 k={k} {lab}", got[i], want[i]))
+        xw = x.float().reshape(N, S // k, k, S // k, k, C)
+        tie_share = ((xw == xw.amax(dim=(2, 4), keepdim=True)).sum(
+            dim=(2, 4)) > 1).float().mean().item()
+
+        # library yardstick, two calls: F.max_pool2d, then the cuDNN 1x1
+        # conv; backward: convolution_backward, then max_pool2d's (which
+        # routes a tie to one element)
+        xl = x.permute(0, 3, 1, 2)
+        pooled, idx = F.max_pool2d(xl, k, return_indices=True)
+        wl = w.t().to(torch.bfloat16)[:, :, None, None].contiguous(
+            memory_format=torch.channels_last)
+        bl = bias.to(torch.bfloat16)
+        gl = gr.permute(0, 3, 1, 2)
+
+        def lib_bwd_fn():
+            dp, _, _ = torch.ops.aten.convolution_backward(
+                gl, pooled, wl, [cout], [1, 1], [0, 0], [1, 1], False,
+                [0, 0], 1, [True, True, True])
+            torch.ops.aten.max_pool2d_with_indices_backward(
+                dp, xl, [k, k], [k, k], [0, 0], [1, 1], False, idx)
+
+        fwd_ms = cuda_ms(lambda: poolconv.pool_conv_fwd(x, w, bias, k=k),
+                         reps=10)
+        bwd_ms = cuda_ms(lambda: poolconv.pool_conv_bwd(x, gr, w, k=k),
+                         reps=10)
+        lib_fwd = cuda_ms(lambda: F.conv2d(F.max_pool2d(xl, k), wl, bl),
+                          reps=10)
+        lib_bwd = cuda_ms(lib_bwd_fn, reps=10)
+        plain_fwd = cuda_ms(lambda: poolconv.pool_conv_reference(
+            x, w, bias, k=k), reps=3, warmup=1)
+        plain_bwd = cuda_ms(lambda: poolconv.pool_conv_bwd_reference(
+            x, gr, w, k=k), reps=3, warmup=1)
+        Mo = N * (S // k) ** 2
+        ff = 2 * Mo * C * cout
+        xb = N * S * S * C * 2
+        fb = xb + Mo * cout * 2 + C * cout * 2 + cout * 4
+        bb = 2 * xb + Mo * cout * 2 + C * cout * 2 + (C + 1) * cout * 4
+        b_fwd, by_fwd = bound(ff, fb)
+        b_bwd, by_bwd = bound(2 * ff, bb)
+        row = {"phase": "k4", "call": name, "N": N, "H": S, "C": C,
+               "cout": cout, "k": k, "tie_window_share": tie_share,
+               "max_abs_err": err,
+               "tolerance": TOLERANCE,
+               "ms_fwd": fwd_ms, "ms_bwd": bwd_ms,
+               "plain_ms_fwd": plain_fwd, "plain_ms_bwd": plain_bwd,
+               "library_ms_fwd": lib_fwd, "library_ms_bwd": lib_bwd,
+               "library": "two calls: F.max_pool2d, then a cuDNN 1x1 conv; "
+                          "its backward routes a tie to one element",
+               "bound_ms_fwd": b_fwd, "bound_by_fwd": by_fwd,
+               "bound_ms_bwd": b_bwd, "bound_by_bwd": by_bwd,
+               "gflop": 3 * ff / 1e9, "mbytes": (fb + bb) / 1e6,
+               "calls_per_step": 1}
+        emit(row)
+        rows.append(row)
+        del x, y, got, want, xl, pooled, idx, gl, gr
     return rows
 
 
@@ -433,16 +655,16 @@ def rel_l2(a, b, atol=1e-6):
 
 
 def step_64px(device, raw):
-    """One 64 px, bs 2, f32 train step from seeded weights on `device`: the
-    metrics row, every parameter's gradient and every BN running buffer, in
-    f64 on the CPU."""
+    """One 64 px, bs 2, f32 dense-trunk train step from seeded weights on
+    `device`: the metrics row, every parameter's gradient and every BN
+    running buffer, in f64 on the CPU."""
     from resuneta_torch import losses, models
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.train import create_train_state, make_train_step
 
     model = models.ResUnetA(NUM_CLASSES, img_size=64, dtype=torch.float32,
                             generator=torch.Generator().manual_seed(SEED + 7),
-                            device=device)
+                            device=device, dense_trunk=True)
     state = create_train_state(model, "adam", 1e-4)
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in HEADS}, True,
@@ -468,16 +690,19 @@ def step_errors(got, want):
                             if k.split(".")[0] in HEAD_LEAVES),
         "last_block_rel_l2": max(rel_l2(gg[k], gw[k]) for k in gw
                                  if k.startswith(LAST_BLOCK + ".")),
+        "dense_tail_rel_l2": max(rel_l2(gg[k], gw[k]) for k in gw
+                                 if k.split(".")[0] in DENSE_TAIL),
         "bn_running_rel_l2": max(rel_l2(bg[k], bw[k]) for k in bw)}
 
 
 def step_card_vs_cpu():
-    """The 64 px, bs 2, f32 step on the card (TF32 off) against the CPU
-    plain path, from the same weights and batch, and the CPU with one
-    thread against the CPU with many, the same readings of the order of
-    sums alone. Returns the readings, the kernel launches of the card's
+    """The 64 px, bs 2, f32 dense-trunk step on the card (TF32 off) against
+    the CPU plain path, from the same weights and batch, and the CPU with
+    one thread against the CPU with many, the same readings of the order
+    of sums alone. Returns the readings, the kernel launches of the card's
     step, and the names of the readings past STEP_TOL."""
-    from resuneta_torch.ops import boundary, convseg, distance
+    from resuneta_torch.ops import (boundary, convseg, densemm, distance,
+                                    poolconv)
 
     rng = np.random.default_rng(SEED + 4)
     raw = {"image_u8": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
@@ -491,12 +716,15 @@ def step_card_vs_cpu():
     finally:
         torch.set_num_threads(threads)
     counters = ((convseg, "LAUNCHES"), (convseg, "BWD_LAUNCHES"),
+                (densemm, "LAUNCHES"), (densemm, "BWD_LAUNCHES"),
+                (poolconv, "LAUNCHES"), (poolconv, "BWD_LAUNCHES"),
                 (distance, "LAUNCHES"), (boundary, "LAUNCHES"))
     before = [getattr(m, k) for m, k in counters]
     with convseg.no_tf32():
         card = step_64px("cuda", raw)
     torch.cuda.synchronize()
-    launches = dict(zip(("K1", "K2", "K5", "K6"),
+    launches = dict(zip(("K1", "K2", "K3", "K3_bwd", "K4", "K4_bwd", "K5",
+                         "K6"),
                         (getattr(m, k) - c for (m, k), c in
                          zip(counters, before))))
     errs = step_errors(card, cpu)
@@ -506,7 +734,11 @@ def step_card_vs_cpu():
             "failed": [k for k, v in errs.items() if not v < STEP_TOL[k]]}
 
 
-def phase_train(models, convseg, distance, boundary, smi):
+def train_steps(models, steps, dense_trunk, mods):
+    """`steps` ISPRS train steps at full width from seeded weights, every
+    kernel count set to 0 just before and read just after. Returns (the
+    launches and calls by kernel, metric rows, step times, peak memory
+    after the first step, params)."""
     from resuneta_torch import losses
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.train import create_train_state, make_train_step
@@ -518,16 +750,26 @@ def phase_train(models, convseg, distance, boundary, smi):
            "aug": rng.integers(0, 5, TRAIN_BATCH)}
     model = models.ResUnetA(NUM_CLASSES, img_size=PATCH, multitasking=True,
                             dtype=torch.bfloat16,
-                            generator=torch.Generator().manual_seed(SEED))
+                            generator=torch.Generator().manual_seed(SEED),
+                            dense_trunk=dense_trunk)
     state = create_train_state(model, "adam", 1e-4)
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in HEADS}, True,
                            preprocess=make_device_pipeline(NUM_CLASSES, 1))
-
-    convseg.LAUNCHES = convseg.BWD_LAUNCHES = convseg.BWD_CALLS = 0
-    distance.LAUNCHES = boundary.LAUNCHES = 0
+    convseg, densemm, poolconv, distance, boundary = mods
+    counters = {"K1": (convseg, "LAUNCHES"), "K2": (convseg, "BWD_LAUNCHES"),
+                "K2 calls": (convseg, "BWD_CALLS"),
+                "K3": (densemm, "LAUNCHES"), "K3 calls": (densemm, "CALLS"),
+                "K3 bwd": (densemm, "BWD_LAUNCHES"),
+                "K3 bwd calls": (densemm, "BWD_CALLS"),
+                "K4": (poolconv, "LAUNCHES"), "K4 calls": (poolconv, "CALLS"),
+                "K4 bwd": (poolconv, "BWD_LAUNCHES"),
+                "K4 bwd calls": (poolconv, "BWD_CALLS"),
+                "K5": (distance, "LAUNCHES"), "K6": (boundary, "LAUNCHES")}
+    for m, k in counters.values():
+        setattr(m, k, 0)
     rows, times = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -536,42 +778,71 @@ def phase_train(models, convseg, distance, boundary, smi):
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         rows.append(row.cpu().numpy())
-    launches = {"K1": convseg.LAUNCHES, "K2": convseg.BWD_LAUNCHES,
-                "K5": distance.LAUNCHES, "K6": boundary.LAUNCHES}
-    k2_calls = convseg.BWD_CALLS
-    peak = torch.cuda.max_memory_allocated()
-    # per step: 44 fused segments, each one K1 launch forward and one K2
-    # call (4 launches) backward; one K5 call (a launch per JFA pass + 2)
-    # and one K6 launch over the batch's 80 class planes
-    want = {"K1": 44 * TRAIN_STEPS, "K2": 4 * 44 * TRAIN_STEPS,
-            "K5": (len(distance.jfa_steps(PATCH, PATCH)) + 2) * TRAIN_STEPS,
-            "K6": TRAIN_STEPS}
-    if launches != want or k2_calls != 44 * TRAIN_STEPS:
-        fail(f"train launches {launches} and {k2_calls} K2 calls, expected "
-             f"{want} and {44 * TRAIN_STEPS}")
+    counts = {name: getattr(m, k) for name, (m, k) in counters.items()}
     rows = np.stack(rows)
     if not np.isfinite(rows).all():
         fail(f"non-finite metric rows: {rows}")
+    return (counts, rows, times, torch.cuda.max_memory_allocated(),
+            sum(p.numel() for p in model.parameters()))
+
+
+def expected_counts(steps, dense):
+    """Per step: 44 fused segments, each one K1 launch forward and one K2
+    call (4 launches) backward; on the dense trunk 12 K3 and 3 K4 calls
+    each way (one launch forward, three backward); one K5 call (a launch
+    per JFA pass + 2) and one K6 launch over the batch's 80 class planes."""
+    k3, k4 = (12, 3) if dense else (0, 0)
+    per = {"K1": 44, "K2": 4 * 44, "K2 calls": 44, "K3": k3,
+           "K3 calls": k3, "K3 bwd": 3 * k3, "K3 bwd calls": k3, "K4": k4,
+           "K4 calls": k4, "K4 bwd": 3 * k4, "K4 bwd calls": k4,
+           "K5": 13, "K6": 1}
+    return {k: v * steps for k, v in per.items()}
+
+
+def median(times):
+    warm = sorted(times[1:])
+    return warm[len(warm) // 2]
+
+
+def phase_train(models, mods, smi):
+    # the dense trunk, the card's default routing (dense_trunk=None)
+    counts, rows, times, peak, params = train_steps(models, TRAIN_STEPS,
+                                                    None, mods)
+    want = expected_counts(TRAIN_STEPS, True)
+    if counts != want:
+        fail(f"dense-trunk train counts {counts}, expected {want}")
     if not rows[-1, 0] < rows[0, 0]:
         fail(f"loss did not fall over {TRAIN_STEPS} steps on one batch: "
              f"{rows[:, 0]}")
-
-    warm = sorted(times[1:])
-    median = warm[len(warm) // 2]
+    med = median(times)
     row = {"phase": "train", "model": "ResUnetA d6 multitask",
-           "params": sum(p.numel() for p in model.parameters()),
+           "routing": "dense trunk", "params": params,
            "patch": PATCH, "batch": TRAIN_BATCH, "dtype": "bfloat16",
            "optimizer": "adam 1e-4", "loss": "tanimoto x 4 heads",
-           "steps": TRAIN_STEPS, "launches": launches,
-           "k2_calls": k2_calls,
+           "steps": TRAIN_STEPS, "launches": counts,
            "first_step_s": times[0], "step_s": times,
-           "median_warm_step_s": median,
-           "patches_per_s": TRAIN_BATCH / median,
+           "median_warm_step_s": med,
+           "patches_per_s": TRAIN_BATCH / med,
            "max_memory_allocated_bytes": peak,
            "loss_first": float(rows[0, 0]), "loss_last": float(rows[-1, 0]),
            "row_first": rows[0].tolist(), "row_last": rows[-1].tolist(),
            "card": smi}
     emit(row)
+
+    # the NHWC routing beside it: no K3, no K4
+    n_counts, n_rows, n_times, n_peak, _ = train_steps(models, NHWC_STEPS,
+                                                       False, mods)
+    n_want = expected_counts(NHWC_STEPS, False)
+    if n_counts != n_want:
+        fail(f"NHWC train counts {n_counts}, expected {n_want}")
+    n_med = median(n_times)
+    emit({"phase": "train_nhwc", "routing": "NHWC (dense_trunk=False)",
+          "steps": NHWC_STEPS, "launches": n_counts,
+          "first_step_s": n_times[0], "step_s": n_times,
+          "median_warm_step_s": n_med, "patches_per_s": TRAIN_BATCH / n_med,
+          "max_memory_allocated_bytes": n_peak,
+          "loss_first": float(n_rows[0, 0]), "card": smi})
+
     parity = step_card_vs_cpu()
     emit({"phase": "train_64px_f32", **parity})
     if parity["failed"]:
@@ -590,15 +861,19 @@ def main():
     from resuneta_torch import models
     from resuneta_torch.infer import sliding
     from resuneta_torch.kernels import build
-    from resuneta_torch.ops import boundary, convseg, distance
+    from resuneta_torch.ops import (boundary, convseg, densemm, distance,
+                                    poolconv)
 
     torch.manual_seed(SEED)
     smi = phase_build(build)
     rows = phase_k1(convseg, F)
     sl = phase_slice(models, sliding, convseg, smi)
     k2_rows = phase_k2(convseg)
+    k3_rows = phase_k3(densemm, F)
+    k4_rows = phase_k4(poolconv, F)
     labels = phase_labels(distance, boundary)
-    tr = phase_train(models, convseg, distance, boundary, smi)
+    tr = phase_train(models, (convseg, densemm, poolconv, distance,
+                              boundary), smi)
 
     def per(rows_, launches_key):
         """Sums over the main path's calls at their shapes, and which of
@@ -643,10 +918,41 @@ def main():
         "library_ms": bwd["library_ms"],
         "library": "cuDNN convolution_backward of a precomputed bf16 z "
                    "(no BN sums)",
-        "calls": tr["k2_calls"],
+        "calls": tr["launches"]["K2 calls"],
         "per": "one 16-patch train step: the 44 calls (4 launches each) at "
                "their shapes",
     }]
+    for key, krows, name, src, rep in (
+            ("K3", k3_rows, "K3 dense_mm (1x1 conv over concat parts: "
+             "ReLU, nearest upsample, stride fused; forward and backward)",
+             "resuneta_torch/kernels/csrc/densemm.cu",
+             "resuneta_tpu/ops/pallas/densemm.py:321"),
+            ("K4", k4_rows, "K4 pool_conv (k x k max pool -> 1x1 conv; "
+             "forward and the tie-splitting backward)",
+             "resuneta_torch/kernels/csrc/poolconv.cu",
+             "resuneta_tpu/ops/pallas/poolconv.py:237")):
+        for r in krows:       # both ways of a call, once a step
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                r[k] = r[k + "_fwd"] + r[k + "_bwd"]
+        tot = per(krows, "calls_per_step")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": tr["launches"][key] + tr["launches"][key + " bwd"],
+            "launches_by_way": {"forward": tr["launches"][key],
+                                "backward": tr["launches"][key + " bwd"]},
+            "calls": {"forward": tr["launches"][key + " calls"],
+                      "backward": tr["launches"][key + " bwd calls"]},
+            "max_abs_err": max(r["max_abs_err"] for r in krows),
+            "tolerance": krows[0]["tolerance"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "library_ms": tot["library_ms"],
+            "library": krows[0].get(
+                "library", "cuDNN 1x1 conv and convolution_backward of the "
+                           "materialised concat/upsample"),
+            "per": f"one 16-patch dense-trunk train step: the "
+                   f"{len(krows)} calls at their shapes, forward (1 launch "
+                   f"a call) and backward (3 launches a call)"})
     for key, name, src, rep in (
             ("k5", "K5 distance_transform_edt (JFA exact EDT)",
              "resuneta_torch/kernels/csrc/jfa.cu",

@@ -13,10 +13,12 @@ Ported so far:
   (`infer.sliding`, `cli.test_isprs`), with the fused BN -> ReLU -> dilated
   3x3 conv segment as a CUDA kernel (`ops.convseg`, K1);
 - the ISPRS multitask train step (`train.make_train_step` with
-  `data.make_device_pipeline`, `losses`, `train.create_train_state`) in the
-  reference's NHWC configuration, with the segment's backward (K2), the JFA
-  distance transform (`ops.distance`, K5) and the Canny boundary labels
-  (`ops.boundary`, K6) as CUDA kernels.
+  `data.make_device_pipeline`, `losses`, `train.create_train_state`), with
+  the segment's backward (K2), the JFA distance transform (`ops.distance`,
+  K5) and the Canny boundary labels (`ops.boundary`, K6) as CUDA kernels,
+  in both of the reference's routings: NHWC, and the dense trunk (the
+  default on the card), whose 1x1 convs over concat parts (`ops.densemm`,
+  K3) and PSP max pool -> 1x1 conv (`ops.poolconv`, K4) are CUDA kernels.
 """
 
 __version__ = "0.1.0"

@@ -7,7 +7,8 @@ Each source in `csrc/` compiles on its own with
 
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds, not minutes). The file name carries a hash of the
-source and the flags, so an edited source never loads a stale library.
+source, the shared headers in `csrc/` (`*.cuh`) and the flags, so an edited
+source or header never loads a stale library.
 Nothing is built when a module is imported: `load()` builds on first use,
 `build_all()` starts one nvcc per source at once.
 """
@@ -22,7 +23,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = {"convseg": "convseg.cu", "convseg_bwd": "convseg_bwd.cu",
-           "jfa": "jfa.cu", "canny": "canny.cu"}
+           "jfa": "jfa.cu", "canny": "canny.cu", "densemm": "densemm.cu",
+           "poolconv": "poolconv.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +43,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -20,14 +20,24 @@ statistics' affine, in train `FusedSegment` (K1 forward on the batch
 statistics, K2 backward). Elsewhere the segment is x*a + b -> ReLU -> conv
 (eval) or the closed-form BN apply -> conv (train) in the compute dtype.
 
-Train mode is the reference's NHWC configuration, what it runs off the TPU
-(dense trunk off, tail mode "0", segment mode "1", resuneta.py:502-523,
-:642-646, :238): every first BN of a ResBlock's branches normalises the
-block input with ONE shared statistics pass (each still updates its own
-running buffers), the 1x1 ConvBNs use batch statistics, and the heads are
-plain convs. In eval a BN after a 1x1 conv folds into the conv weights
-(epilogue). PSP pool levels are gated on the build-time img_size, not on
-the input.
+Train mode runs one of the reference's two routings (resuneta.py:502-523,
+:542-623), chosen by `dense_trunk`. In both, every first BN of a
+ResBlock's branches normalises the block input with ONE shared statistics
+pass (each still updates its own running buffers), the 1x1 ConvBNs use
+batch statistics, and the heads are plain convs (segment mode "1", tail
+mode "0" or "2").
+- NHWC (what the reference runs off the TPU): every 1x1 conv is a cuDNN
+  conv, PSP pools through max_pool2d, concat and upsample materialise.
+- Dense trunk (the reference's TPU default, and the card's here): the
+  shallow encoder's stride-2 1x1 convs, the shallow decoder's
+  UpSampleConv/Combine (UpSampleConv's x2 folded into Combine's product,
+  relu(dec) fused) and the final Combine + PSPPooling run through K3
+  (ops/densemm.py, over concat parts, no concat or upsample materialised)
+  and the PSP's pooled levels through K4 (ops/poolconv.py, pool fused,
+  ties splitting the gradient); the deep levels (C >= 256) and the heads
+  stay as in NHWC. The parameter tree is the same in both.
+In eval a BN after a 1x1 conv folds into the conv weights (epilogue). PSP
+pool levels are gated on the build-time img_size, not on the input.
 
 Module and parameter names mirror the Flax tree (Conv_0.., ResBlockA_0..,
 BatchNorm_0.., ConvBN_0.., seg1..3) so convert.from_flax maps one onto the
@@ -44,6 +54,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import convseg
+from ..ops import dense as dops
 from ..ops.fused_bn import bn_apply, bn_stats
 from .norm import BatchNorm, nhwc
 
@@ -123,6 +134,22 @@ class Conv(nn.Module):
             y = torch.relu(y)
         return y
 
+    def dense(self, parts, pool=1):
+        """The 1x1 conv on the dense trunk (resuneta.py:98-123) over
+        parts [(x, act, ups)] of NCHW channels_last tensors (NHWC bytes):
+        a K4 max pool -> conv where pool > 1, the stride-2 downsample
+        where this conv has stride 2, else K3 over the concat of the
+        parts."""
+        w = self.weight[:, :, 0, 0].t()
+        xs = [(nhwc(x), act, ups) for x, act, ups in parts]
+        if pool > 1:
+            y = dops.pool_conv1x1(xs[0][0], w, self.bias, k=pool)
+        elif self.stride == 2:
+            y = dops.downsample2_conv1x1(xs[0][0], w, self.bias)
+        else:
+            y = dops.concat_conv1x1(xs, w, self.bias)
+        return y.permute(0, 3, 1, 2)
+
 
 class ConvBN(nn.Module):
     """Conv (1x1 by default) -> BN; in eval the BN folds into the conv, in
@@ -136,7 +163,12 @@ class ConvBN(nn.Module):
                            dtype=dtype, generator=generator)
         self.BatchNorm_0 = BatchNorm(features, act=act)
 
-    def forward(self, x):
+    def forward(self, x, dense_parts=None, pool=1):
+        """dense_parts=[(x, act, ups)]: the dense trunk's route
+        (resuneta.py:209-216), the conv through K3/K4 (Conv.dense), train
+        mode only."""
+        if dense_parts is not None:
+            return self.BatchNorm_0(self.Conv_0.dense(dense_parts, pool))
         if self.training:
             return self.BatchNorm_0(self.Conv_0(x))
         return self.Conv_0(x, epilogue=self.BatchNorm_0.affine(), act=self.act)
@@ -198,12 +230,23 @@ class PSPPooling(nn.Module):
             quarter * len(self.levels) + features, features, dtype=dtype,
             act=act, generator=generator))
 
-    def forward(self, x):
+    def forward(self, x, dense=False):
+        """dense: the dense trunk's path (resuneta.py:374-423): level 1
+        through K3, the pooled levels through K4, each BN on the small
+        tensor, and the projection one K3 call over the levels and x with
+        ups (1, 2, 4, 8, 1) at img_width 256. The reference downgrades the
+        largest ups when its VMEM planner finds no plan (:411-421); a
+        nearest upsample is a copy, so here every level folds into K3."""
+        final = getattr(self, f"ConvBN_{len(self.levels)}")
+        if dense:
+            parts = [(getattr(self, f"ConvBN_{i}")(
+                None, dense_parts=[(x, False, 1)], pool=k), False, k)
+                for i, k in enumerate(self.levels)]
+            return final(None, dense_parts=parts + [(x, False, 1)])
         parts = []
         for i, k in enumerate(self.levels):
             p = F.max_pool2d(x, k) if k > 1 else x
             parts.append(_upsample_nearest(getattr(self, f"ConvBN_{i}")(p), k))
-        final = getattr(self, f"ConvBN_{len(self.levels)}")
         return final(torch.cat(parts + [x], dim=1))
 
 
@@ -216,7 +259,12 @@ class Combine(nn.Module):
         self.ConvBN_0 = ConvBN(dec_features + skip_features, features,
                                dtype=dtype, generator=generator)
 
-    def forward(self, dec, skip):
+    def forward(self, dec, skip, dense=False, ups=1):
+        """dense: one K3 call over (dec, ReLU, ups) and (skip)
+        (resuneta.py:442-454); ups=2 takes dec before UpSampleConv's x2."""
+        if dense:
+            return self.ConvBN_0(None, dense_parts=[(dec, True, ups),
+                                                    (skip, False, 1)])
         return self.ConvBN_0(torch.cat([torch.relu(dec), skip], dim=1))
 
 
@@ -232,7 +280,11 @@ class UpSampleConv(nn.Module):
         self.ConvBN_0 = ConvBN(in_features, features, dtype=dtype,
                                generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, dense=False):
+        """dense: the ConvBN through K3, and the x2 left to the consumer
+        (Combine folds it into its product; resuneta.py:481-482)."""
+        if dense:
+            return self.ConvBN_0(None, dense_parts=[(x, False, 1)])
         return _upsample_nearest(self.ConvBN_0(x), 2)
 
 
@@ -253,15 +305,24 @@ class ResUnetA(nn.Module):
     Weights are drawn on the CPU from `generator` (a fresh generator seeded
     0 when None; the reference's scheme: glorot-uniform convs, zero bias,
     BN scale 1, bias 0, mean 0, var 1), then moved to `device` (None means
-    cuda, see device.resolve_device)."""
+    cuda, see device.resolve_device).
+
+    dense_trunk picks the train-mode routing (the reference's
+    `_use_dense_trunk`, resuneta.py:502-523, whose RESUNETA_DENSE_TRUNK
+    becomes this argument): None, the reference's default, runs the dense
+    trunk where its kernels run (the model on the card) and NHWC on the
+    CPU, as the reference is off the TPU; True and False force it on and
+    off. On needs the reference's geometry (H == W, W % 32 == 0, W >= 64);
+    elsewhere, and in eval, the model runs NHWC."""
 
     def __init__(self, num_classes, img_size=256, multitasking=True,
                  color_head=True, dtype=torch.float32, in_channels=3,
-                 generator=None, device=None):
+                 generator=None, device=None, dense_trunk=None):
         super().__init__()
         dev = resolve_device(device)
         g = generator if generator is not None else \
             torch.Generator().manual_seed(0)
+        self.dense_trunk = dense_trunk
         self.num_classes = num_classes
         self.img_size = img_size
         self.multitasking = multitasking
@@ -303,22 +364,39 @@ class ResUnetA(nn.Module):
         self.eval()
         self.to(dev)
 
+    def uses_dense_trunk(self, H, W):
+        """The routing of a train-mode forward on H x W input (class
+        doc)."""
+        if not self.training or self.dense_trunk is False:
+            return False
+        if H != W or W % 32 or W < 64:
+            return False
+        return self.dense_trunk or self.Conv_0.weight.is_cuda
+
     def forward(self, x):
+        dense = self.uses_dense_trunk(x.shape[1], x.shape[2])
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last
         c1 = x = self.Conv_0(x)
         skips = []
         for i in range(len(_ENCODER)):
             if i:
-                x = getattr(self, f"Conv_{i}")(x)
+                conv = getattr(self, f"Conv_{i}")
+                # the dense trunk's stride-2 downsamples: C < 256 in
+                x = conv.dense([(x, False, 1)]) if dense and i <= 3 \
+                    else conv(x)
             x = getattr(self, f"ResBlockA_{i}")(x)
             skips.append(x)
         x = self.PSPPooling_0(x)
         for i, skip in enumerate(skips[4::-1]):
-            x = getattr(self, f"UpSampleConv_{i}")(x)
-            x = getattr(self, f"Combine_{i}")(x, skip)
+            # the dense trunk's shallow decoder: UpSampleConv_{2,3,4}
+            # hands Combine the tensor before its x2
+            d = dense and i >= 2
+            x = getattr(self, f"UpSampleConv_{i}")(x, dense=d)
+            x = getattr(self, f"Combine_{i}")(x, skip, dense=d,
+                                              ups=2 if d else 1)
             x = getattr(self, f"ResBlockA_{6 + i}")(x)
-        x_comb = self.Combine_5(x, c1)
-        x_psp = self.PSPPooling_1(x_comb)
+        x_comb = self.Combine_5(x, c1, dense=dense)
+        x_psp = self.PSPPooling_1(x_comb, dense=dense)
         return self._heads(x_comb, x_psp)
 
     def _heads(self, x_comb, x_psp):

@@ -1,7 +1,7 @@
-"""Tests of the PyTorch port that need a CUDA card: the kernels (K1, K2, K5,
-K6) against their plain versions, the wrappers raising on what their
-kernels do not take, and the 64 px model and train step on the card against
-the CPU plain path. They skip without a card. This file imports no JAX, so
+"""Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K6)
+against their plain versions, the wrappers raising on what their kernels
+do not take, and the 64 px model and train step on the card against the
+CPU plain path. They skip without a card. This file imports no JAX, so
 it runs where only PyTorch is installed, without the JAX-importing
 tests/conftest.py:
 
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from resuneta_torch.models import ResUnetA
-from resuneta_torch.ops import boundary, convseg, distance
+from resuneta_torch.ops import boundary, convseg, densemm, distance, poolconv
 
 
 @pytest.fixture
@@ -196,15 +196,147 @@ def test_new_wrappers_raise_instead_of_falling_back(cuda):
 
 @pytest.mark.gpu
 def test_train_step_on_card_matches_cpu_plain_path(cuda):
-    """64 px, bs 2, f32, TF32 off, through chip_smoke.step_card_vs_cpu (the
-    one copy of this comparison): 44 K1 launches, 44 K2 calls of 4
-    launches, one K5 call of 11 launches at 64^2 and one K6 launch per
-    step; the card against the CPU plain path within chip_smoke.STEP_TOL
-    (the losses, all gradients, the heads, the last decoder ResBlock's
-    leaves that K2 gives, and every BN running buffer)."""
+    """64 px, bs 2, f32, TF32 off, the dense trunk on both sides, through
+    chip_smoke.step_card_vs_cpu (the one copy of this comparison): 44 K1
+    launches, 44 K2 calls of 4 launches, 12 K3 calls forward (one launch
+    each) and 12 backward (three each), one K4 call each way (the 64 px PSP
+    pools only at k = 2), one K5 call of 11 launches at 64^2 and one K6
+    launch per step; the card against the CPU plain path within
+    chip_smoke.STEP_TOL (the losses, all gradients, the heads, the last
+    decoder ResBlock's leaves that K2 gives, the Combine_5 and PSPPooling_1
+    leaves that K3 and K4 give, and every BN running buffer)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
 
     got = chip_smoke.step_card_vs_cpu()
-    assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K5": 11, "K6": 1}
+    assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K3": 12,
+                               "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 3,
+                               "K5": 11, "K6": 1}
     assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
+
+
+# ---------------------------------------------------------------- K3, K4
+
+# (parts as (cin, h, w, act, ups, stride), cout, N): the main path's kinds
+# at small sizes: a strided downsample, a Combine with ReLU and a x2 fold,
+# the PSP projection with ups 1/2/4/8, narrow and wide outputs
+K3_CASES = [
+    ([(32, 16, 16, False, 1, 2)], 64, 2),
+    ([(128, 16, 16, False, 1, 2)], 256, 1),
+    ([(256, 8, 8, False, 1, 1)], 64, 2),
+    ([(16, 8, 8, True, 2, 1), (32, 16, 16, False, 1, 1)], 32, 2),
+    ([(32, 16, 16, True, 1, 1), (32, 16, 16, False, 1, 1)], 32, 2),
+    ([(32, 32, 32, False, 1, 1)], 8, 1),
+    ([(8, 32, 32, False, 1, 1), (8, 16, 16, False, 2, 1),
+      (8, 8, 8, False, 4, 1), (8, 4, 4, False, 8, 1),
+      (32, 32, 32, False, 1, 1)], 32, 2),
+]
+
+
+def _k3_inputs(parts, cout, N, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.standard_normal((N, h, w, c)).astype(
+        np.float32)).to(device, dtype) for c, h, w, _, _, _ in parts]
+    cin = sum(p[0] for p in parts)
+    w = torch.from_numpy((rng.standard_normal((cin, cout)) / cin ** 0.5
+                          ).astype(np.float32)).to(device)
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) *
+                            0.1).to(device)
+    spec = {"acts": [p[3] for p in parts], "ups": [p[4] for p in parts],
+            "strides": [p[5] for p in parts]}
+    return xs, w, bias, spec
+
+
+def _close(got, want, out_rtol):
+    """Within out_rtol relative (one bf16 ulp of a bf16 result, 0 for
+    f32) plus 1e-3 of the largest magnitude (bf16) or 1e-5 (f32): the
+    plain versions repeat the kernels' roundings, only the order of the
+    f32 sums differs."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    atol = (1e-3 if out_rtol else 1e-5) * scale
+    torch.testing.assert_close(got, want, rtol=out_rtol, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(K3_CASES)))
+def test_k3_matches_plain(cuda, case, dtype):
+    parts, cout, N = K3_CASES[case]
+    xs, w, bias, spec = _k3_inputs(parts, cout, N, dtype, case, cuda)
+    launches = densemm.LAUNCHES
+    y = densemm.dense_mm_fwd(xs, w, bias, **spec)
+    torch.cuda.synchronize()
+    assert densemm.LAUNCHES == launches + 1
+    assert y.dtype == dtype
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 0
+    _close(y, densemm.dense_mm_reference(xs, w, bias, **spec), ulp)
+
+    g = torch.randn(y.shape, device=cuda).to(dtype)
+    launches = densemm.BWD_LAUNCHES
+    dxs, dw, db = densemm.dense_mm_bwd(xs, g, w, **spec)
+    torch.cuda.synchronize()
+    assert densemm.BWD_LAUNCHES == launches + 3
+    wdxs, wdw, wdb = densemm.dense_mm_bwd_reference(xs, g, w, **spec)
+    for dx, wdx, (_, _, _, _, _, s) in zip(dxs, wdxs, parts):
+        _close(dx, wdx, ulp)
+        if s > 1:      # zero where the strided conv does not read
+            assert not dx[:, 1::2].any() and not dx[:, :, 1::2].any()
+    _close(dw, wdw, 0)
+    _close(db, wdb, 0)
+
+
+def _tied(N, H, W, C, seed, device, dtype):
+    """Small integers: exact ties in most windows."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, (N, H, W, C)).astype(np.float32)
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("tied", [False, True], ids=["random", "tied"])
+def test_k4_matches_plain(cuda, k, dtype, tied):
+    N, H, W, C, cout = 2, 32, 32, 32, 8
+    if tied:
+        x = _tied(N, H, W, C, k, cuda, dtype)
+    else:
+        x = torch.randn((N, H, W, C), device=cuda).to(dtype)
+    w = torch.randn((C, cout), device=cuda) / C ** 0.5
+    bias = torch.randn(cout, device=cuda) * 0.1
+    launches = poolconv.LAUNCHES
+    y = poolconv.pool_conv_fwd(x, w, bias, k=k)
+    torch.cuda.synchronize()
+    assert poolconv.LAUNCHES == launches + 1
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 0
+    _close(y, poolconv.pool_conv_reference(x, w, bias, k=k), ulp)
+    g = torch.randn(y.shape, device=cuda).to(dtype)
+    launches = poolconv.BWD_LAUNCHES
+    got = poolconv.pool_conv_bwd(x, g, w, k=k)
+    torch.cuda.synchronize()
+    assert poolconv.BWD_LAUNCHES == launches + 3
+    want = poolconv.pool_conv_bwd_reference(x, g, w, k=k)
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        _close(gt, wt, ulp if i == 0 else 0)
+
+
+@pytest.mark.gpu
+def test_k3_k4_raise_instead_of_falling_back(cuda):
+    xs, w, bias, spec = _k3_inputs([(32, 8, 8, False, 1, 1)], 32, 1,
+                                   torch.bfloat16, 0, cuda)
+    with pytest.raises(ValueError):                           # w on the CPU
+        densemm.dense_mm_fwd(xs, w.cpu(), bias, **spec)
+    with pytest.raises(ValueError):                           # cin = 12
+        densemm.dense_mm_fwd([xs[0][..., :12].contiguous()], w[:12], bias)
+    with pytest.raises(ValueError):                           # cout = 12
+        densemm.dense_mm_fwd(xs, w[:, :12], bias[:12])
+    with pytest.raises(ValueError):                           # g's dtype
+        densemm.dense_mm_bwd(xs, torch.zeros((1, 8, 8, 32), device=cuda),
+                             w, **spec)
+    x = torch.zeros((1, 8, 8, 32), device=cuda)
+    with pytest.raises(ValueError):                           # k = 3
+        poolconv.pool_conv_fwd(x, w[:, :8].contiguous(), bias[:8], k=3)
+    with pytest.raises(ValueError):                           # NCHW strides
+        poolconv.pool_conv_fwd(x.permute(0, 3, 1, 2), w[:, :8], bias[:8],
+                               k=2)

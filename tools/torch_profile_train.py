@@ -6,14 +6,18 @@ random weights, uint8 patches and class ids through make_device_pipeline),
 summed by device kernel.
 
     python3 tools/torch_profile_train.py [--batch 16] [--iters 5]
+                                         [--routing dense|nhwc]
 
-Prints one JSON line: the card (nvidia-smi name and power limit), the host
-wall time per step (without the profiler, and under it), the device busy
-time per step (sum of kernel times, under the profiler), the busy share,
-the time of each of the port's kernels (K1 convseg_kernel, K2
-dgrad/wgrad/reduce, K5 jfa_*, K6 canny_kernel), cuDNN/CUTLASS convolutions
-and GEMMs, the top kernels by total device time, and the host operators by
-self CPU time (calls and ms per step).
+--routing picks the model's train-mode routing: the dense trunk (the
+card's default; 1x1 convs through K3 and K4) or NHWC (dense_trunk=False).
+Prints one JSON line: the card (nvidia-smi name and power limit), the
+routing, the host wall time per step (without the profiler, and under
+it), the device busy time per step (sum of kernel times, under the
+profiler), the busy share, the time of each of the port's kernels (K1
+convseg_kernel, K2 dgrad/wgrad/reduce, K3 densemm_*, K4 poolconv_*, K5
+jfa_*, K6 canny_kernel), cuDNN/CUTLASS convolutions and GEMMs, the top
+kernels by total device time, and the host operators by self CPU time
+(calls and ms per step).
 """
 
 import argparse
@@ -29,11 +33,25 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+
+def _k2(name):
+    # K3's and K4's kernels carry K2's names after their own prefix
+    return lambda k: name in k and "densemm" not in k and "poolconv" not in k
+
+
 GROUPS = {
     "K1 convseg_kernel": lambda k: "convseg_kernel" in k,
-    "K2 dgrad_kernel": lambda k: "dgrad_kernel" in k,
-    "K2 wgrad_kernel": lambda k: "wgrad_kernel" in k,
+    "K2 dgrad_kernel": _k2("dgrad_kernel"),
+    "K2 wgrad_kernel": _k2("wgrad_kernel"),
     "K2 reduce_rows": lambda k: "reduce_rows" in k,
+    "K3 densemm_fwd_kernel": lambda k: "densemm_fwd_kernel" in k,
+    "K3 densemm_dgrad_kernel": lambda k: "densemm_dgrad_kernel" in k,
+    "K3 densemm_wgrad_kernel": lambda k: "densemm_wgrad_kernel" in k,
+    "K3 densemm_reduce_kernel": lambda k: "densemm_reduce_kernel" in k,
+    "K4 poolconv_fwd_kernel": lambda k: "poolconv_fwd_kernel" in k,
+    "K4 poolconv_dgrad_kernel": lambda k: "poolconv_dgrad_kernel" in k,
+    "K4 poolconv_wgrad_kernel": lambda k: "poolconv_wgrad_kernel" in k,
+    "K4 poolconv_reduce_kernel": lambda k: "poolconv_reduce_kernel" in k,
     "K5 jfa": lambda k: "jfa_" in k,
     "K6 canny_kernel": lambda k: "canny_kernel" in k,
 }
@@ -51,6 +69,8 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=20)
+    parser.add_argument("--routing", choices=("dense", "nhwc"),
+                        default="dense")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -64,7 +84,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     model = ResUnetA(5, img_size=256, multitasking=True, dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(0))
+                     generator=torch.Generator().manual_seed(0),
+                     dense_trunk=None if args.routing == "dense" else False)
     state = create_train_state(model, "adam", 1e-4)
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in ("seg", "bound", "dist", "color")},
@@ -114,7 +135,8 @@ def main(argv=None):
                  e.self_cpu_time_total / 1e3 / args.iters]
                 for e in host[:args.top]]
     print(json.dumps({
-        "card": smi, "batch": args.batch, "iters": args.iters,
+        "card": smi, "routing": args.routing, "batch": args.batch,
+        "iters": args.iters,
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_under_profiler": prof_wall_ms,
         "device_busy_ms_per_step": busy, "busy_share": busy / wall_ms,
