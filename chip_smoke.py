@@ -39,13 +39,22 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             256^2 a 16 x 5-class batch gives them (Voronoi blobs, uniform
             noise, an all-zero and an all-one plane); no PyTorch call
             computes either, so library_ms is null.
-7. train  - the ISPRS multitask train step at full width (bf16, batch 16,
+7. k8, k5_tiles_256, k5_512, k7 - the row-tiled kernels on the planes of
+            the large patches, bit for bit against their plain versions
+            (the same band decomposition) and the whole-plane plain
+            versions: K8 on the 40 planes of 512^2 an 8 x 5-class batch
+            gives and the 10 of 1024^2 of a 2 x 5-class batch; the EDT
+            kernel, which serves K5's planes and K7's alike, on those and
+            the 80 of 256^2; each timed at its default tile and at others
+            (ms_by_tile). k7_k8_forced_256: K8 forced through `tile`
+            against K6 on the 80 planes of 256^2.
+8. train  - the ISPRS multitask train step at full width (bf16, batch 16,
             256 px, Adam 1e-4, Tanimoto on the four heads, uint8 patches and
             Voronoi-blob class ids through make_device_pipeline) in the
             dense-trunk routing, the card's default: per step 44 K1
             launches, 44 K2 calls of 4 launches, 12 K3 calls each way (1
-            and 3 launches a call), 3 K4 calls each way (likewise), one K5
-            call of 13 launches and one K6 launch; finite metric rows; the
+            and 3 launches a call), 3 K4 calls each way (likewise), one EDT
+            call of 12 launches and one K6 launch; finite metric rows; the
             loss after 10 steps on one batch below the first step's. Times
             the warm steps (median, with a synchronise). Then 3 steps of
             the NHWC routing (dense_trunk=False: no K3, no K4), and one
@@ -53,7 +62,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             path, beside the CPU with one thread against many
             (step_card_vs_cpu; the card's step test in
             tests/test_torch_gpu.py runs the same function).
-8. kernels line, then the last line {"ok": true, "device": {...}}.
+9. train_512, train_1024 - the same step at bench.py's large-patch rows:
+            512 px, batch 8, 5 steps, and 1024 px, batch 2, 4 steps,
+            without remat: per step the 256 px step's K1-K4 launches, and
+            on the label side one EDT call of 13 launches (512 px) or 14
+            (1024 px) and one K8 launch (no K6); finite rows, a falling
+            loss, the median warm step, patches/s and peak memory.
+10. kernels line, then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is false
 or the package is not beside this file.
@@ -97,7 +112,7 @@ HEADS = ("seg", "bound", "dist", "color")
 BF16_ULP = 2 ** -7
 ATOL_OF_MAX = 1e-3
 # non-tensor-core peak (the 67 TFLOP/s f32 figure of the same data sheet),
-# the rate the integer work of K5 and K6 is held against
+# the rate the integer work of the label kernels is held against
 PEAK_SCALAR_OPS = 67e12
 # the 64 px, bs 2, f32 step, card (TF32 off) against the CPU plain path, at
 # the limits of tests/test_torch_train.py: losses 2e-3 relative, every
@@ -593,56 +608,157 @@ def voronoi_ids(n, size, classes, rng, sites=12):
     return out
 
 
-def label_planes():
-    """80 int32 planes of 256^2: 14 samples x 5 classes of Voronoi blobs,
-    8 of uniform noise, an all-zero and an all-one plane."""
+# class planes a train batch gives the label kernels, by patch: Voronoi
+# samples x 5 classes and uniform-noise planes, beside an all-zero and an
+# all-one plane (80 planes at 256^2 as at batch 16, 40 at 512^2 as at
+# batch 8, 10 at 1024^2 as at batch 2)
+LABEL_PLANES = {256: (14, 8), 512: (6, 8), 1024: (1, 3)}
+
+
+def label_planes(size=PATCH):
+    """int32 planes of size^2 (LABEL_PLANES): Voronoi blobs, uniform
+    noise, an all-zero and an all-one plane."""
+    samples, noise = LABEL_PLANES[size]
     rng = np.random.default_rng(SEED + 5)
-    ids = voronoi_ids(14, PATCH, NUM_CLASSES, rng)
+    ids = voronoi_ids(samples, size, NUM_CLASSES, rng)
     blobs = np.eye(NUM_CLASSES, dtype=np.int32)[ids].transpose(0, 3, 1, 2)
     planes = np.concatenate([
-        blobs.reshape(-1, PATCH, PATCH),
-        (rng.random((8, PATCH, PATCH)) < 0.5).astype(np.int32),
-        np.zeros((1, PATCH, PATCH), np.int32),
-        np.ones((1, PATCH, PATCH), np.int32)])
+        blobs.reshape(-1, size, size),
+        (rng.random((noise, size, size)) < 0.5).astype(np.int32),
+        np.zeros((1, size, size), np.int32),
+        np.ones((1, size, size), np.int32)])
     return torch.from_numpy(planes).cuda()
 
 
 def phase_labels(distance, boundary):
-    """K5 and K6, bit for bit. Bound: 4 bytes in and 4 out a pixel, and the
-    integer work the function needs counted against PEAK_SCALAR_OPS: K5
-    ~100 operations a pixel per JFA pass (8 candidates: bounds, the seed's
-    unpacking, d^2, compare and select), K6 ~50 a pixel (Sobel, NMS,
-    thresholds, cross dilation; these class planes need no hysteresis
-    round)."""
+    """K5 and K6, bit for bit. Bound (label_row): 4 bytes in and 4 out a
+    pixel, and the integer work the function needs counted against
+    PEAK_SCALAR_OPS: K5 ~100 operations a pixel per JFA pass (8
+    candidates: bounds, the seed's unpacking, d^2, compare and select), K6
+    ~50 a pixel (Sobel, NMS, thresholds, cross dilation; these class
+    planes need no hysteresis round)."""
     planes = label_planes()
-    P, H, W = planes.shape
+    H, W = planes.shape[1:]
     rows = {}
-    for name, mod, fn, ref, ops_px in (
-            ("k5", distance, distance.distance_transform_edt,
+    for name, fn, ref, ops_px in (
+            ("k5", distance.distance_transform_edt,
              distance.distance_transform_edt_reference,
-             100 * len(distance.jfa_steps(H, W))),
-            ("k6", boundary, boundary.boundary_label,
+             100 * len(distance.tiled_steps(H, W))),
+            ("k6", boundary.boundary_label,
              boundary.boundary_label_reference, 50)):
         got = fn(planes)
-        want = ref(planes)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).sum())
-            fail(f"{name} differs from its plain version at {bad} pixels")
+        same(name, got, ref(planes))
         ms = cuda_ms(lambda: fn(planes), reps=10)
         plain_ms = cuda_ms(lambda: ref(planes), reps=2, warmup=1)
-        t_ops = P * H * W * ops_px / PEAK_SCALAR_OPS
-        t_bytes = P * H * W * 8 / PEAK_BYTES
-        row = {"phase": name, "planes": P, "H": H, "W": W,
-               "max_abs_err": 0.0, "tolerance": "bit-identical",
-               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "library": "none: no PyTorch call computes this function",
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "ops_per_pixel": ops_px,
-               "nonzero_share": got.gt(0).float().mean().item()}
+        row = {"phase": name, **label_row(planes, got, ms, plain_ms,
+                                          ops_px)}
         emit(row)
         rows[name] = row
+    return rows
+
+
+def label_row(planes, got, ms, plain_ms, ops_px):
+    """The fields of a label kernel's row; bound: 4 bytes in and 4 out a
+    pixel against PEAK_BYTES, ops_px integer operations a pixel against
+    PEAK_SCALAR_OPS."""
+    P, H, W = planes.shape
+    t_ops = P * H * W * ops_px / PEAK_SCALAR_OPS
+    t_bytes = P * H * W * 8 / PEAK_BYTES
+    return {"planes": P, "H": H, "W": W,
+            "max_abs_err": 0.0, "tolerance": "bit-identical",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no PyTorch call computes this function",
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_per_pixel": ops_px,
+            "nonzero_share": got.gt(0).float().mean().item()}
+
+
+def same(name, got, *wants):
+    torch.cuda.synchronize()
+    for want in wants:
+        if not torch.equal(got, want):
+            fail(f"{name} differs from its plain version at "
+                 f"{int((got != want).sum())} pixels")
+
+
+def phase_labels_tiled(distance, boundary):
+    """K8 bit for bit against its plain version (the same band
+    decomposition, at the kernel's tile) and the whole-plane plain version,
+    on the planes of the 512 px and 1024 px train steps (40 x 512^2 and
+    10 x 1024^2); K8 forced through `tile` against K6 on the 80 planes of
+    256^2. The EDT kernel (K5's planes and K7's alike) at every tile of
+    1-16 rows on the planes of all three steps, each against the
+    whole-plane plain version, and at its default tile against the plain
+    version of its bands. Bounds as phase_labels' (the EDT ~100 operations
+    a pixel a pass, K8 ~50 a pixel; K8's halo rows are recomputed work the
+    bound does not count); plain_ms of the plain version at the tile the
+    wrapper gives it on the CPU."""
+    rows = {}
+    p256 = label_planes(256)
+    k8_tile = boundary.default_tile(256, 256)
+    same("K8 (tile 128) against K6 at 256^2",
+         boundary.boundary_label(p256, tile=k8_tile),
+         boundary.boundary_label(p256))
+    forced = {"k8_vs_k6_256": {"planes": p256.shape[0], "tile": k8_tile}}
+    del p256
+
+    for size in (512, 1024):
+        planes = label_planes(size)
+        H, W = planes.shape[1:]
+        tile = boundary.default_tile(H, W)
+        got = boundary.boundary_label(planes)
+        same(f"K8 at {size}^2", got,
+             boundary.boundary_label_tiled_reference(planes, tile),
+             boundary.boundary_label_reference(planes))
+        by_tile = {}
+        for t in (32, 64, 128):
+            same(f"K8 at {size}^2, tile {t}",
+                 boundary.boundary_label(planes, tile=t), got)
+            by_tile[t] = cuda_ms(lambda: boundary.boundary_label(
+                planes, tile=t), reps=5)
+        ms = cuda_ms(lambda: boundary.boundary_label(planes), reps=10)
+        plain_ms = cuda_ms(lambda: boundary.boundary_label_tiled_reference(
+            planes, tile), reps=2, warmup=1)
+        windows = sum(min(H, r + tile + boundary.HALO) -
+                      max(0, r - boundary.HALO) for r in range(0, H, tile))
+        row = {"phase": "k8", **label_row(planes, got, ms, plain_ms, 50),
+               "tile": tile, "ms_by_tile": by_tile,
+               "recomputed_rows_share": windows / H}
+        emit(row)
+        rows[f"k8_{size}"] = row
+        del planes, got
+
+    for size, name in ((256, "k5_tiles_256"), (512, "k5_512"), (1024, "k7")):
+        planes = label_planes(size)
+        H, W = planes.shape[1:]
+        tile = distance.default_tile(W)
+        got = distance.distance_transform_edt(planes)
+        same(f"the EDT at {size}^2", got,
+             distance.distance_transform_edt_tiled_reference(planes, tile),
+             distance.distance_transform_edt_reference(planes))
+        by_tile = {}
+        for t in (1, 2, 4, 8, 16):
+            same(f"the EDT at {size}^2, tile {t}",
+                 distance.distance_transform_edt(planes, tile=t), got)
+            by_tile[t] = cuda_ms(lambda: distance.distance_transform_edt(
+                planes, tile=t), reps=5)
+        row = {"phase": name, "tile": tile, "ms_by_tile": by_tile}
+        if size > 256:        # phase_labels times 256^2
+            ms = cuda_ms(lambda: distance.distance_transform_edt(planes),
+                         reps=10)
+            plain_ms = cuda_ms(
+                lambda: distance.distance_transform_edt_tiled_reference(
+                    planes, distance.PLAIN_TILE), reps=2, warmup=1)
+            row.update(label_row(planes, got, ms, plain_ms,
+                                 100 * len(distance.tiled_steps(H, W))),
+                       plain_tile=distance.PLAIN_TILE)
+        emit(row)
+        rows[name] = row
+        del planes, got
+    forced["k7_tiles_vs_k5_plain_256"] = {
+        "planes": 80, "tiles": list(rows["k5_tiles_256"]["ms_by_tile"])}
+    emit({"phase": "k7_k8_forced_256", **forced, "max_abs_err": 0.0})
     return rows
 
 
@@ -723,8 +839,8 @@ def step_card_vs_cpu():
     with convseg.no_tf32():
         card = step_64px("cuda", raw)
     torch.cuda.synchronize()
-    launches = dict(zip(("K1", "K2", "K3", "K3_bwd", "K4", "K4_bwd", "K5",
-                         "K6"),
+    launches = dict(zip(("K1", "K2", "K3", "K3_bwd", "K4", "K4_bwd",
+                         "K5/K7", "K6"),
                         (getattr(m, k) - c for (m, k), c in
                          zip(counters, before))))
     errs = step_errors(card, cpu)
@@ -734,7 +850,8 @@ def step_card_vs_cpu():
             "failed": [k for k, v in errs.items() if not v < STEP_TOL[k]]}
 
 
-def train_steps(models, steps, dense_trunk, mods):
+def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
+                batch=TRAIN_BATCH):
     """`steps` ISPRS train steps at full width from seeded weights, every
     kernel count set to 0 just before and read just after. Returns (the
     launches and calls by kernel, metric rows, step times, peak memory
@@ -744,11 +861,11 @@ def train_steps(models, steps, dense_trunk, mods):
     from resuneta_torch.train import create_train_state, make_train_step
 
     rng = np.random.default_rng(SEED + 3)
-    raw = {"image_u8": rng.integers(0, 256, (TRAIN_BATCH, PATCH, PATCH, 3),
+    raw = {"image_u8": rng.integers(0, 256, (batch, patch, patch, 3),
                                     dtype=np.uint8),
-           "label_ids": voronoi_ids(TRAIN_BATCH, PATCH, NUM_CLASSES, rng),
-           "aug": rng.integers(0, 5, TRAIN_BATCH)}
-    model = models.ResUnetA(NUM_CLASSES, img_size=PATCH, multitasking=True,
+           "label_ids": voronoi_ids(batch, patch, NUM_CLASSES, rng),
+           "aug": rng.integers(0, 5, batch)}
+    model = models.ResUnetA(NUM_CLASSES, img_size=patch, multitasking=True,
                             dtype=torch.bfloat16,
                             generator=torch.Generator().manual_seed(SEED),
                             dense_trunk=dense_trunk)
@@ -765,7 +882,9 @@ def train_steps(models, steps, dense_trunk, mods):
                 "K4": (poolconv, "LAUNCHES"), "K4 calls": (poolconv, "CALLS"),
                 "K4 bwd": (poolconv, "BWD_LAUNCHES"),
                 "K4 bwd calls": (poolconv, "BWD_CALLS"),
-                "K5": (distance, "LAUNCHES"), "K6": (boundary, "LAUNCHES")}
+                "K5/K7": (distance, "LAUNCHES"),
+                "K6": (boundary, "LAUNCHES"),
+                "K8": (boundary, "TILED_LAUNCHES")}
     for m, k in counters.values():
         setattr(m, k, 0)
     rows, times = [], []
@@ -786,22 +905,64 @@ def train_steps(models, steps, dense_trunk, mods):
             sum(p.numel() for p in model.parameters()))
 
 
-def expected_counts(steps, dense):
+# the label kernels' launches per step by patch: one EDT call (a launch
+# per pass of the filtered JFA schedule + 2; the reference gives 256^2 and
+# 512^2 planes to K5, larger ones to K7, the port all to one kernel) and
+# one Canny launch (K6 up to 384^2, K8 above) over all the batch's class
+# planes
+LABEL_LAUNCHES = {256: {"K5/K7": 12, "K6": 1, "K8": 0},
+                  512: {"K5/K7": 13, "K6": 0, "K8": 1},
+                  1024: {"K5/K7": 14, "K6": 0, "K8": 1}}
+
+
+def expected_counts(steps, dense, patch=PATCH):
     """Per step: 44 fused segments, each one K1 launch forward and one K2
     call (4 launches) backward; on the dense trunk 12 K3 and 3 K4 calls
-    each way (one launch forward, three backward); one K5 call (a launch
-    per JFA pass + 2) and one K6 launch over the batch's 80 class planes."""
+    each way (one launch forward, three backward); LABEL_LAUNCHES."""
     k3, k4 = (12, 3) if dense else (0, 0)
     per = {"K1": 44, "K2": 4 * 44, "K2 calls": 44, "K3": k3,
            "K3 calls": k3, "K3 bwd": 3 * k3, "K3 bwd calls": k3, "K4": k4,
            "K4 calls": k4, "K4 bwd": 3 * k4, "K4 bwd calls": k4,
-           "K5": 13, "K6": 1}
+           **LABEL_LAUNCHES[patch]}
     return {k: v * steps for k, v in per.items()}
 
 
 def median(times):
     warm = sorted(times[1:])
     return warm[len(warm) // 2]
+
+
+# the large-patch train steps of bench.py's rows (512 px, batch 8; 1024 px,
+# batch 2), without remat: (patch, batch, steps)
+TRAIN_LARGE = ((512, 8, 5), (1024, 2, 4))
+
+
+def phase_train_large(models, mods, smi, patch, batch, steps):
+    """The dense-trunk step at a large patch: the label side takes K8 and
+    the EDT kernel; the rest as the 256 px step."""
+    counts, rows, times, peak, params = train_steps(
+        models, steps, None, mods, patch=patch, batch=batch)
+    want = expected_counts(steps, True, patch)
+    if counts != want:
+        fail(f"{patch} px train counts {counts}, expected {want}")
+    if not rows[-1, 0] < rows[0, 0]:
+        fail(f"loss did not fall over {steps} steps at {patch} px: "
+             f"{rows[:, 0]}")
+    med = median(times)
+    row = {"phase": f"train_{patch}", "model": "ResUnetA d6 multitask",
+           "routing": "dense trunk", "params": params, "patch": patch,
+           "batch": batch, "dtype": "bfloat16", "optimizer": "adam 1e-4",
+           "loss": "tanimoto x 4 heads", "steps": steps, "launches": counts,
+           "launches_per_step": {k: v // steps for k, v in counts.items()},
+           "first_step_s": times[0], "step_s": times,
+           "median_warm_step_s": med, "patches_per_s": batch / med,
+           "max_memory_allocated_bytes": peak,
+           "loss_first": float(rows[0, 0]), "loss_last": float(rows[-1, 0]),
+           "row_first": rows[0].tolist(), "row_last": rows[-1].tolist(),
+           "card": smi}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_train(models, mods, smi):
@@ -872,8 +1033,19 @@ def main():
     k3_rows = phase_k3(densemm, F)
     k4_rows = phase_k4(poolconv, F)
     labels = phase_labels(distance, boundary)
-    tr = phase_train(models, (convseg, densemm, poolconv, distance,
-                              boundary), smi)
+    labels.update(phase_labels_tiled(distance, boundary))
+    mods = (convseg, densemm, poolconv, distance, boundary)
+    tr = phase_train(models, mods, smi)
+    paths = {"train": tr["launches"]}
+    for patch, batch, steps in TRAIN_LARGE:
+        paths[f"train_{patch}"] = phase_train_large(
+            models, mods, smi, patch, batch, steps)["launches"]
+
+    def launched(key):
+        """Launches of a kernel on each train path that ran it, and in
+        all."""
+        by = {p: c[key] for p, c in paths.items() if c[key]}
+        return sum(by.values()), by
 
     def per(rows_, launches_key):
         """Sums over the main path's calls at their shapes, and which of
@@ -889,15 +1061,16 @@ def main():
 
     fwd = per([r for r in rows if r["on_path"]], "launches_per_forward")
     bwd = per(k2_rows, "calls_per_step")
+    k1_train, k1_by = launched("K1")
+    k2_all, k2_by = launched("K2")
     kernels = [{
         "name": "K1 bn_act_conv (fused BN affine -> ReLU -> dilated 3x3 "
                 "conv)",
         "route": "cuda",
         "source": "resuneta_torch/kernels/csrc/convseg.cu",
         "replaces": "resuneta_tpu/ops/pallas/convseg.py:550",
-        "launches": sl["k1_launches"] + tr["launches"]["K1"],
-        "launches_by_path": {"slice": sl["k1_launches"],
-                             "train": tr["launches"]["K1"]},
+        "launches": sl["k1_launches"] + k1_train,
+        "launches_by_path": {"slice": sl["k1_launches"], **k1_by},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "tolerance": rows[0]["tolerance"],
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -910,7 +1083,7 @@ def main():
         "route": "cuda",
         "source": "resuneta_torch/kernels/csrc/convseg_bwd.cu",
         "replaces": "resuneta_tpu/ops/pallas/convseg.py:611",
-        "launches": tr["launches"]["K2"],
+        "launches": k2_all, "launches_by_path": k2_by,
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         "tolerance": k2_rows[0]["tolerance"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
@@ -918,9 +1091,9 @@ def main():
         "library_ms": bwd["library_ms"],
         "library": "cuDNN convolution_backward of a precomputed bf16 z "
                    "(no BN sums)",
-        "calls": tr["launches"]["K2 calls"],
-        "per": "one 16-patch train step: the 44 calls (4 launches each) at "
-               "their shapes",
+        "calls": launched("K2 calls")[0],
+        "per": "one 16-patch 256 px train step: the 44 calls (4 launches "
+               "each) at their shapes",
     }]
     for key, krows, name, src, rep in (
             ("K3", k3_rows, "K3 dense_mm (1x1 conv over concat parts: "
@@ -935,13 +1108,15 @@ def main():
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 r[k] = r[k + "_fwd"] + r[k + "_bwd"]
         tot = per(krows, "calls_per_step")
+        fwd_n, fwd_by = launched(key)
+        bwd_n, bwd_by = launched(key + " bwd")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": tr["launches"][key] + tr["launches"][key + " bwd"],
-            "launches_by_way": {"forward": tr["launches"][key],
-                                "backward": tr["launches"][key + " bwd"]},
-            "calls": {"forward": tr["launches"][key + " calls"],
-                      "backward": tr["launches"][key + " bwd calls"]},
+            "launches": fwd_n + bwd_n,
+            "launches_by_way": {"forward": fwd_n, "backward": bwd_n},
+            "launches_by_path": {p: fwd_by[p] + bwd_by[p] for p in fwd_by},
+            "calls": {"forward": launched(key + " calls")[0],
+                      "backward": launched(key + " bwd calls")[0]},
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             "tolerance": krows[0]["tolerance"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -950,26 +1125,50 @@ def main():
             "library": krows[0].get(
                 "library", "cuDNN 1x1 conv and convolution_backward of the "
                            "materialised concat/upsample"),
-            "per": f"one 16-patch dense-trunk train step: the "
+            "per": f"one 16-patch 256 px dense-trunk train step: the "
                    f"{len(krows)} calls at their shapes, forward (1 launch "
                    f"a call) and backward (3 launches a call)"})
-    for key, name, src, rep in (
-            ("k5", "K5 distance_transform_edt (JFA exact EDT)",
+    for key, row_key, name, src, rep, unit in (
+            ("K5/K7", "k5", "K5/K7 distance_transform_edt (JFA exact EDT "
+             "over row bands staged in shared memory: one CUDA kernel for "
+             "the planes of both TPU kernels)",
              "resuneta_torch/kernels/csrc/jfa.cu",
-             "resuneta_tpu/ops/pallas/jfa.py:291"),
-            ("k6", "K6 boundary_label (Canny(0,1) + cross dilation)",
+             "resuneta_tpu/ops/pallas/jfa.py:291",
+             "one 16-patch 256 px train step: one call of 12 launches over "
+             "80 planes of 256^2 (at_512: one call of 13 launches over 40 "
+             "planes of 512^2, an 8-patch 512 px step; at_1024: one of 14 "
+             "over 10 planes of 1024^2, a 2-patch 1024 px step)"),
+            ("K6", "k6", "K6 boundary_label (Canny(0,1) + cross dilation)",
              "resuneta_torch/kernels/csrc/canny.cu",
-             "resuneta_tpu/ops/pallas/canny.py:227")):
-        r = labels[key]
-        kernels.append({
+             "resuneta_tpu/ops/pallas/canny.py:227",
+             "one 16-patch 256 px train step: one launch over 80 planes of "
+             "256^2"),
+            ("K8", "k8_512", "K8 boundary_label, row-tiled (Canny(0,1) + "
+             "cross dilation per band of rows, 35-row halo)",
+             "resuneta_torch/kernels/csrc/canny.cu",
+             "resuneta_tpu/ops/pallas/canny.py:257",
+             "one 8-patch 512 px train step: one launch over 40 planes of "
+             "512^2 (at_1024: a 2-patch 1024 px step, 10 planes of "
+             "1024^2)")):
+        r = labels[row_key]
+        n, by = launched(key)
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": tr["launches"][key.upper()],
+            "launches": n, "launches_by_path": by,
             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "library": r["library"],
-            "per": "one 16-patch train step: one call over 80 planes of "
-                   "256^2 (K5: 13 launches, K6: one)"})
+            "library_ms": None, "library": r["library"], "per": unit}
+        sizes = {"K5/K7": (("at_512", "k5_512"), ("at_1024", "k7")),
+                 "K8": (("at_1024", "k8_1024"),), "K6": ()}[key]
+        for at, k in sizes:
+            entry[at] = {f: labels[k][f] for f in
+                         ("ms", "plain_ms", "bound_ms", "bound_by", "tile",
+                          "ms_by_tile")}
+        if key == "K5/K7":
+            entry["also_replaces"] = "resuneta_tpu/ops/pallas/jfa.py:221"
+            entry["ms_by_tile"] = labels["k5_tiles_256"]["ms_by_tile"]
+        kernels.append(entry)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

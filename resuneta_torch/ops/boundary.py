@@ -11,12 +11,17 @@ a round changes nothing. On integer planes no round runs: Sobel's dx and dy
 see the same four corners with weight 1 (the rest with weight 2 or 0), so
 |dx| + |dy| is even and never the weak magnitude 1.
 
-K6 is `boundary_label`: on a CUDA tensor it launches the CUDA kernel
-(kernels/csrc/canny.cu) or raises; only a tensor on the CPU takes the plain
-version `boundary_label_reference`. Both are bit-identical to the reference
-(ops/boundary.py and the Pallas kernel ops/pallas/canny.py). `LAUNCHES`
-counts kernel launches (one a wrapper call on the card, whatever the
-number of planes), `CALLS` wrapper calls on any device.
+`boundary_label` routes as the reference does (ops/pallas/canny.py:224):
+planes up to 384^2 take K6, the whole-plane kernel (canny.py:227), larger
+ones K8, the row-tiled kernel (canny.py:257), which computes each band of
+rows from a halo of HYSTERESIS_ITERS + 3 rows on each side; `tile=` forces
+K8 on any plane. On a CUDA tensor each launches its CUDA kernel
+(kernels/csrc/canny.cu) or raises; only a tensor on the CPU takes the
+plain versions, `boundary_label_reference` and
+`boundary_label_tiled_reference`. All are bit-identical to the reference
+(ops/boundary.py and the Pallas kernel). `LAUNCHES` counts K6's kernel
+launches and `TILED_LAUNCHES` K8's (one a wrapper call on the card, whatever
+the number of planes), `CALLS` wrapper calls on any device.
 """
 
 import ctypes
@@ -27,14 +32,22 @@ from ..kernels import build
 from .distance import shift
 
 LAUNCHES = 0
+TILED_LAUNCHES = 0
 CALLS = 0
 
 _TG22 = 13573
 HYSTERESIS_ITERS = 32
+# K8's halo: 1 row Sobel + 2 rows NMS + a row a hysteresis round + 1 row
+# dilation (canny.py:57-59)
+HALO = HYSTERESIS_ITERS + 3
 # the whole-plane kernel's limit in the reference (canny.py:46); larger
-# planes take the row-tiled kernel K8 there, not ported yet
+# planes take the row-tiled kernel K8, there and here
 MAX_PLANE_ELEMS = 384 * 384
-_fn = None
+# K8 keeps a byte a pixel of its band and halo rows in a block's shared
+# memory, at most SMEM_BYTES; its band is DEFAULT_TILE rows where that fits
+SMEM_BYTES = 232448
+DEFAULT_TILE = 128
+_fns = {}
 
 
 def _sobel_replicate(img):
@@ -60,8 +73,9 @@ def _dilate8(b):
     return out
 
 
-def canny_binary(img):
-    """Canny(0, 1) of (P, H, W) int32 planes -> bool edges."""
+def _strong_weak(img):
+    """Sobel, NMS and the thresholds of (P, H, W) int32 planes -> the
+    strong and weak edge pixels (bool)."""
     dx, dy = _sobel_replicate(img)
     mag = dx.abs() + dy.abs()
 
@@ -83,8 +97,10 @@ def canny_binary(img):
     kept = torch.where(horiz, keep_h, torch.where(vert, keep_v, keep_diag))
     kept = kept & (mag > 0)
     strong = kept & (mag > 1)
-    weak = kept & ~strong
+    return strong, kept & ~strong
 
+
+def _hysteresis(strong, weak):
     # Jacobi rounds from the round-start edges, capped; planes that stop
     # changing are fixed points, so one loop over the batch is the same as
     # one loop per plane
@@ -99,6 +115,11 @@ def canny_binary(img):
     return edges
 
 
+def canny_binary(img):
+    """Canny(0, 1) of (P, H, W) int32 planes -> bool edges."""
+    return _hysteresis(*_strong_weak(img))
+
+
 def cross_dilate(e):
     """3x3 cross dilation (cv2.MORPH_CROSS) of bool planes -> f32 {0, 1}."""
     b = e | shift(e, 0, -1, False) | shift(e, 0, 1, False) | \
@@ -107,8 +128,39 @@ def cross_dilate(e):
 
 
 def boundary_label_reference(planes):
-    """The plain version: (P, H, W) int32 -> (P, H, W) f32 {0, 1}."""
+    """K6's plain version: (P, H, W) int32 -> (P, H, W) f32 {0, 1}."""
     return cross_dilate(canny_binary(planes))
+
+
+def boundary_label_tiled_reference(planes, tile):
+    """K8's plain version, the same band decomposition as the kernel: each
+    band of `tile` rows from a window of HALO more rows on each side inside
+    the plane. Sobel and NMS see two rows of context past the window, so
+    their borders are the plane's, exact on every window row; the
+    hysteresis (stopping early per band, as the reference's) and the
+    dilation see the window's edge, which reaches at most 33 rows in and
+    never a band row. Bit-identical to the whole-plane version."""
+    P, H, W = planes.shape
+    out = torch.empty((P, H, W), dtype=torch.float32, device=planes.device)
+    for r0 in range(0, H, tile):
+        r1 = min(r0 + tile, H)
+        w0, w1 = max(r0 - HALO, 0), min(r1 + HALO, H)
+        c0, c1 = max(w0 - 2, 0), min(w1 + 2, H)
+        strong, weak = _strong_weak(planes[:, c0:c1])
+        edges = _hysteresis(strong[:, w0 - c0:w1 - c0],
+                            weak[:, w0 - c0:w1 - c0])
+        out[:, r0:r1] = cross_dilate(edges)[:, r0 - w0:r1 - w0]
+    return out
+
+
+def default_tile(H, W):
+    """K8's band rows: DEFAULT_TILE, halved until the window of
+    min(H, tile + 2 * HALO) rows of W bytes fits SMEM_BYTES; 0 if none
+    does (W above 3,273)."""
+    tile = DEFAULT_TILE
+    while tile and min(H, tile + 2 * HALO) * W > SMEM_BYTES:
+        tile //= 2
+    return tile
 
 
 def _check(planes):
@@ -119,48 +171,62 @@ def _check(planes):
         raise ValueError("planes must be contiguous")
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("canny").canny_boundary
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+def _check_tile(H, W, tile):
+    if tile < 1 or min(H, tile + 2 * HALO) * W > SMEM_BYTES:
+        raise ValueError(f"K8 takes tile >= 1 with min(H, tile + "
+                         f"{2 * HALO}) * W <= {SMEM_BYTES} bytes of shared "
+                         f"memory, got tile {tile}, plane {H}x{W}")
+
+
+def _kernel(name):
+    if name not in _fns:
+        fn = getattr(build.load("canny"), name)
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * (
+            6 if name == "canny_boundary_tiled" else 4) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
 
 
-def boundary_label(planes):
-    """K6: Canny(0, 1) + cross dilation of (P, H, W) int32 planes ->
-    (P, H, W) f32 {0, 1}. On the card, planes above 384^2 raise: they need
-    the row-tiled kernel K8 (canny.py:257), which is not ported."""
-    global CALLS, LAUNCHES
+def boundary_label(planes, tile=None):
+    """Canny(0, 1) + cross dilation of (P, H, W) int32 planes -> (P, H, W)
+    f32 {0, 1}: K6 for planes up to 384^2, K8 in bands of `tile` rows
+    (default_tile) above that or when `tile` is given."""
+    global CALLS, LAUNCHES, TILED_LAUNCHES
     _check(planes)
+    P, H, W = planes.shape
+    tiled = tile is not None or H * W > MAX_PLANE_ELEMS
+    if tiled:
+        tile = default_tile(H, W) if tile is None else tile
+        _check_tile(H, W, tile)
     CALLS += 1
     if planes.device.type == "cpu":
+        if tiled:
+            return boundary_label_tiled_reference(planes, tile)
         return boundary_label_reference(planes)
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
-    P, H, W = planes.shape
-    if H * W > MAX_PLANE_ELEMS:
-        raise ValueError(f"plane {H}x{W} is above the whole-plane limit "
-                         f"384^2: it needs the row-tiled Canny kernel K8, "
-                         "not ported")
     out = torch.empty((P, H, W), dtype=torch.float32, device=planes.device)
-    fn = _kernel()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = fn(planes.data_ptr(), out.data_ptr(), P, H, W,
-                HYSTERESIS_ITERS, stream)
+        args = (planes.data_ptr(), out.data_ptr(), P, H, W)
+        if tiled:
+            rc = _kernel("canny_boundary_tiled")(*args, tile, HALO,
+                                                 HYSTERESIS_ITERS, stream)
+        else:
+            rc = _kernel("canny_boundary")(*args, HYSTERESIS_ITERS, stream)
     if rc != 0:
         raise RuntimeError(f"canny kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    if tiled:
+        TILED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 def get_boundary_label(label):
     """The boundary head's label of a one-hot (..., H, W, C) label: every
-    class plane through K6 (all B*C planes of a batch in one call)."""
+    class plane through K6 or K8 (all B*C planes of a batch in one call)."""
     H, W, C = label.shape[-3:]
     planes = label.movedim(-1, -3).reshape(-1, H, W).to(torch.int32)
     bounds = boundary_label(planes.contiguous())

@@ -1,9 +1,9 @@
-"""Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K6)
+"""Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K8)
 against their plain versions, the wrappers raising on what their kernels
-do not take, and the 64 px model and train step on the card against the
-CPU plain path. They skip without a card. This file imports no JAX, so
-it runs where only PyTorch is installed, without the JAX-importing
-tests/conftest.py:
+do not take, the 64 px model and train step on the card against the CPU
+plain path, and one 512 px train step's kernel launches. They skip
+without a card. This file imports no JAX, so it runs where only PyTorch
+is installed, without the JAX-importing tests/conftest.py:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
@@ -165,21 +165,86 @@ def test_label_kernels_are_bit_identical(cuda, op, size):
     launches = mod.LAUNCHES
     got = fn(p)
     torch.cuda.synchronize()
-    # K5: one launch a JFA pass, plus the seeds' and the distances'
+    # the EDT: one launch a pass of the filtered JFA schedule, plus the
+    # seeds' and the distances'
     assert mod.LAUNCHES == launches + (
-        len(distance.jfa_steps(*size)) + 2 if op == "k5" else 1)
+        len(distance.tiled_steps(*size)) + 2 if op == "k5" else 1)
     assert torch.equal(got, ref(p))
     assert torch.equal(got.cpu(), ref(p.cpu()))
 
 
+# K7 and K8: (plane shape, tile; None for the wrapper's default on planes
+# above the whole-plane limits): bands cut short by the plane's edge, one
+# band, several, the default at 512^2 (K8) and 800^2 (K7)
+K8_CASES = [((64, 64), 16), ((48, 80), 7), ((200, 96), 40), ((40, 40), 64),
+            ((512, 512), None)]
+K7_CASES = [((64, 64), 4), ((48, 80), 5), ((13, 40), 3), ((40, 40), 64),
+            ((800, 800), None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,case", [("k8", c) for c in range(len(K8_CASES))]
+                         + [("k7", c) for c in range(len(K7_CASES))])
+def test_tiled_label_kernels_are_bit_identical(cuda, op, case):
+    """K8 and the EDT kernel (K7's design) against their plain versions
+    (the same band decomposition) and the whole-plane plain versions, on
+    the card; small planes also against the CPU's plain version. K8: one
+    launch, no whole-plane launch; the EDT: one a pass of the filtered
+    schedule plus two."""
+    size, tile = (K8_CASES if op == "k8" else K7_CASES)[case]
+    p = torch.from_numpy(_label_planes(size, sum(size))).to(cuda)
+    mod = boundary if op == "k8" else distance
+    if op == "k8":
+        fn, ref, whole = (boundary.boundary_label,
+                          boundary.boundary_label_tiled_reference,
+                          boundary.boundary_label_reference)
+        used = tile or boundary.default_tile(*size)
+        n = 1
+    else:
+        fn, ref, whole = (distance.distance_transform_edt,
+                          distance.distance_transform_edt_tiled_reference,
+                          distance.distance_transform_edt_reference)
+        used = tile or distance.default_tile(size[1])
+        n = len(distance.tiled_steps(*size)) + 2
+    counters = ("LAUNCHES", "TILED_LAUNCHES") if op == "k8" else (
+        "LAUNCHES",)
+    before = [getattr(mod, c) for c in counters]
+    got = fn(p, tile=tile)
+    torch.cuda.synchronize()
+    assert [getattr(mod, c) - b for c, b in zip(counters, before)] == (
+        [0, n] if op == "k8" else [n])
+    assert torch.equal(got, ref(p, used))
+    assert torch.equal(got, whole(p))
+    if tile is not None:
+        assert torch.equal(got.cpu(), ref(p.cpu(), used))
+
+
+@pytest.mark.gpu
+def test_forced_tiled_kernels_match_the_whole_plane_kernels(cuda):
+    """At 256^2, the train step's 256 px planes: K8 forced through `tile`
+    equals K6, and the EDT at other tiles equals the EDT at its default."""
+    p = torch.from_numpy(_label_planes((256, 256), 7)).to(cuda)
+    for tile in (64, 128):
+        assert torch.equal(boundary.boundary_label(p, tile=tile),
+                           boundary.boundary_label(p))
+    for tile in (1, 4, 16):
+        assert torch.equal(distance.distance_transform_edt(p, tile=tile),
+                           distance.distance_transform_edt(p))
+
+
 @pytest.mark.gpu
 def test_new_wrappers_raise_instead_of_falling_back(cuda):
-    with pytest.raises(ValueError, match="K8"):
-        boundary.boundary_label(torch.zeros((1, 400, 400), dtype=torch.int32,
+    with pytest.raises(ValueError, match="K8"):      # window past 227 KB
+        boundary.boundary_label(torch.zeros((1, 400, 4000), dtype=torch.int32,
                                             device=cuda))
-    with pytest.raises(ValueError, match="K7"):
+    with pytest.raises(ValueError, match="K5/K7"):   # bands past 227 KB
         distance.distance_transform_edt(
-            torch.zeros((1, 800, 800), dtype=torch.int32, device=cuda))
+            torch.zeros((1, 64, 1024), dtype=torch.int32, device=cuda),
+            tile=32)
+    for fn in (boundary.boundary_label, distance.distance_transform_edt):
+        with pytest.raises(ValueError):
+            fn(torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda),
+               tile=0)
     for fn in (boundary.boundary_label, distance.distance_transform_edt):
         with pytest.raises(ValueError):
             fn(torch.zeros((1, 8, 8), device=cuda))          # f32 planes
@@ -200,7 +265,7 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
     chip_smoke.step_card_vs_cpu (the one copy of this comparison): 44 K1
     launches, 44 K2 calls of 4 launches, 12 K3 calls forward (one launch
     each) and 12 backward (three each), one K4 call each way (the 64 px PSP
-    pools only at k = 2), one K5 call of 11 launches at 64^2 and one K6
+    pools only at k = 2), one EDT call of 10 launches at 64^2 and one K6
     launch per step; the card against the CPU plain path within
     chip_smoke.STEP_TOL (the losses, all gradients, the heads, the last
     decoder ResBlock's leaves that K2 gives, the Combine_5 and PSPPooling_1
@@ -211,8 +276,27 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
     got = chip_smoke.step_card_vs_cpu()
     assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K3": 12,
                                "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 3,
-                               "K5": 11, "K6": 1}
+                               "K5/K7": 10, "K6": 1}
     assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
+
+
+@pytest.mark.gpu
+def test_train_step_512px_on_card(cuda):
+    """One 512 px dense-trunk step at full width (bf16, batch 2, through
+    chip_smoke.train_steps): 44 K1 launches, 44 K2 calls of 4, 12 K3 and 3
+    K4 calls each way, and on the label side one EDT call of 13 launches
+    and one K8 launch, no K6; finite metric rows."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from resuneta_torch import models
+
+    counts, rows, _, _, params = chip_smoke.train_steps(
+        models, 1, None, (convseg, densemm, poolconv, distance, boundary),
+        patch=512, batch=2)
+    assert counts == chip_smoke.expected_counts(1, True, 512)
+    assert counts["K5/K7"] == 13 and counts["K8"] == 1
+    assert counts["K6"] == 0
+    assert np.isfinite(rows).all() and params == 42708930
 
 
 # ---------------------------------------------------------------- K3, K4

@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Where the time of one train step of the PyTorch port goes on the card:
 torch.profiler over warm steps of the ISPRS multitask step (ResUnet-a d6,
-5 classes, 256 px, bf16, Adam 1e-4, Tanimoto on the four heads, seeded
-random weights, uint8 patches and class ids through make_device_pipeline),
+5 classes, bf16, Adam 1e-4, Tanimoto on the four heads, seeded random
+weights, uint8 patches and class ids through make_device_pipeline),
 summed by device kernel.
 
-    python3 tools/torch_profile_train.py [--batch 16] [--iters 5]
-                                         [--routing dense|nhwc]
+    python3 tools/torch_profile_train.py [--patch 256] [--batch 16]
+                                         [--iters 5] [--routing dense|nhwc]
+                                         [--cudnn-benchmark]
 
---routing picks the model's train-mode routing: the dense trunk (the
-card's default; 1x1 convs through K3 and K4) or NHWC (dense_trunk=False).
+--patch is the patch side (a multiple of 32; bench.py's rows are 256 px
+at batch 16, 512 px at batch 8 and 1024 px at batch 2). --routing picks
+the model's train-mode routing: the dense trunk (the card's default; 1x1
+convs through K3 and K4) or NHWC (dense_trunk=False). --cudnn-benchmark
+sets torch.backends.cudnn.benchmark for this process, so cuDNN times its
+algorithms for each convolution shape at first use instead of taking its
+heuristic's choice (the train step leaves the switch as the caller set
+it).
 Prints one JSON line: the card (nvidia-smi name and power limit), the
 routing, the host wall time per step (without the profiler, and under
 it), the device busy time per step (sum of kernel times, under the
 profiler), the busy share, the time of each of the port's kernels (K1
-convseg_kernel, K2 dgrad/wgrad/reduce, K3 densemm_*, K4 poolconv_*, K5
-jfa_*, K6 canny_kernel), cuDNN/CUTLASS convolutions and GEMMs, the top
-kernels by total device time, and the host operators by self CPU time
+convseg_kernel, K2 dgrad/wgrad/reduce, K3 densemm_*, K4 poolconv_*, the
+EDT's jfa_pass and its seeds and distances (K5 and K7 alike), and
+canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
+GEMMs, the top kernels by total device time, the operators by device
+time with their input shapes, and the host operators by self CPU time
 (calls and ms per step).
 """
 
@@ -52,8 +61,10 @@ GROUPS = {
     "K4 poolconv_dgrad_kernel": lambda k: "poolconv_dgrad_kernel" in k,
     "K4 poolconv_wgrad_kernel": lambda k: "poolconv_wgrad_kernel" in k,
     "K4 poolconv_reduce_kernel": lambda k: "poolconv_reduce_kernel" in k,
-    "K5 jfa": lambda k: "jfa_" in k,
-    "K6 canny_kernel": lambda k: "canny_kernel" in k,
+    "K5/K7 jfa_pass": lambda k: "jfa_pass" in k,
+    "K5/K7 jfa_init + jfa_finish": lambda k: "jfa_init" in k or
+    "jfa_finish" in k,
+    "K6/K8 canny_kernel": lambda k: "canny_kernel" in k,
 }
 
 
@@ -66,11 +77,15 @@ def _library_conv(k):
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
+    parser.add_argument("--patch", type=int, default=256)
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=20)
     parser.add_argument("--routing", choices=("dense", "nhwc"),
                         default="dense")
+    parser.add_argument("--cudnn-benchmark", action="store_true",
+                        help="let cuDNN time its algorithms per shape "
+                             "(torch.backends.cudnn.benchmark)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -80,10 +95,13 @@ def main(argv=None):
     from resuneta_torch.models import ResUnetA
     from resuneta_torch.train import create_train_state, make_train_step
 
+    torch.backends.cudnn.benchmark = args.cudnn_benchmark
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    model = ResUnetA(5, img_size=256, multitasking=True, dtype=torch.bfloat16,
+    P = args.patch
+    model = ResUnetA(5, img_size=P, multitasking=True, dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(0),
                      dense_trunk=None if args.routing == "dense" else False)
     state = create_train_state(model, "adam", 1e-4)
@@ -91,8 +109,9 @@ def main(argv=None):
                            {h: 1.0 for h in ("seg", "bound", "dist", "color")},
                            True, preprocess=make_device_pipeline(5, 1))
     rng = np.random.default_rng(0)
-    ids = rng.integers(0, 5, (args.batch, 8, 8)).repeat(32, 1).repeat(32, 2)
-    raw = {"image_u8": rng.integers(0, 256, (args.batch, 256, 256, 3),
+    ids = rng.integers(0, 5, (args.batch, 8, 8)).repeat(P // 8, 1).repeat(
+        P // 8, 2)
+    raw = {"image_u8": rng.integers(0, 256, (args.batch, P, P, 3),
                                     dtype=np.uint8),
            "label_ids": ids.astype(np.uint8),
            "aug": rng.integers(0, 5, args.batch)}
@@ -106,8 +125,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3 / args.iters
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.time()
         for _ in range(args.iters):
             state, row = step(state, raw)
@@ -134,8 +153,15 @@ def main(argv=None):
     host_top = [[e.key[:60], e.count / args.iters,
                  e.self_cpu_time_total / 1e3 / args.iters]
                 for e in host[:args.top]]
+    ops = sorted(prof.key_averages(group_by_input_shape=True),
+                 key=lambda e: -e.device_time_total)
+    shaped = [[e.key[:40], str(e.input_shapes)[:160], e.count / args.iters,
+               e.device_time_total / 1e3 / args.iters]
+              for e in ops[:args.top]]
     print(json.dumps({
-        "card": smi, "routing": args.routing, "batch": args.batch,
+        "card": smi, "routing": args.routing, "patch": P,
+        "cudnn_benchmark": args.cudnn_benchmark,
+        "batch": args.batch,
         "iters": args.iters,
         "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_under_profiler": prof_wall_ms,
@@ -148,7 +174,8 @@ def main(argv=None):
         "host_ops_calls_and_self_cpu_ms_per_step": host_top,
         "host_self_cpu_ms_per_step": sum(
             e.self_cpu_time_total for e in host) / 1e3 / args.iters,
-        "n_kernel_names": len(kernels)}))
+        "n_kernel_names": len(kernels),
+        "ops_by_device_ms_per_step_with_shapes": shaped}))
 
 
 if __name__ == "__main__":
