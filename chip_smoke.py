@@ -10,22 +10,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             the card's name and power limit as nvidia-smi gives them.
 2. k1     - K1 (fused BN affine -> ReLU -> dilated 3x3 conv) against its
             plain PyTorch version on the card, in bf16, at every shape the
-            256 px inference path gives it (batch 32) plus the C=256 wide
-            shape; times the kernel, the plain version and one cuDNN bf16
-            conv of the same z (library_ms, a yardstick the port never
-            calls) beside the least time the card could take (bound_ms).
-3. slice  - ISPRS whole-scene inference of ResUnet-a d6 at full width
-            (5 classes, 256 px, multitask, bf16, seeded random weights): a
-            2048x2048 uint8 scene through predict_scene(make_seg_ids_fn(...),
-            ids_only=True), batch 32. Checks the ids, that K1 launched 44
-            times per batch, and one patch's seg probabilities (f32 model,
-            card against the CPU plain path); times a warm second pass.
-4. k2     - K2 (the segment's one-pass backward) against its plain version
-            at the 11 shapes of the 256 px train step (batch 16, bf16): the
-            seven cotangents it folds into; times the kernel, the plain
+            256 px inference path gives it (batch 32) plus the wide tier's
+            (WIDE_LEVELS: C = 256 and 512 of the fwd_wide forward, C = 256
+            of the bwd_wide steps at 256, 512 and 1024 px); times the
+            kernel, the plain version and one cuDNN bf16 conv of the same z
+            (library_ms, a yardstick the port never calls) beside the
+            least time the card could take (bound_ms).
+3. slice, slice_wide - ISPRS whole-scene inference of ResUnet-a d6 at full
+            width (5 classes, 256 px, multitask, bf16, seeded random
+            weights): a 2048x2048 uint8 scene through
+            predict_scene(make_seg_ids_fn(...), ids_only=True), batch 32.
+            Checks the ids, that K1 launched 44 times per batch (60 with
+            fwd_wide=True, slice_wide: RB(256) and RB(512) too), and one
+            patch's seg probabilities (f32 model, card against the CPU
+            plain path); times a warm second pass.
+4. k2, k10 - K2 (the segment's one-pass backward) against its plain
+            version at the 11 shapes of the 256 px train step (batch 16,
+            bf16), K9 (the same at C = 256) at the bwd_wide steps' RB(256)
+            shapes, and K2 without the ReLU (the tail's head segments):
+            the seven cotangents it folds into; times the kernel, the plain
             version and one cuDNN convolution_backward (dgrad + wgrad +
             bias, no BN sums) of the same precomputed bf16 z and g
-            (library_ms).
+            (library_ms). k10: the segment of mode "2" (a cuDNN forward,
+            the K2 backward) at the 11 shapes, through autograd, against
+            its plain version.
 5. k3, k4 - K3 (the 1x1 conv over concat parts) and K4 (max pool -> 1x1
             conv), forward and backward, against their plain versions at
             the 12 and 3 shapes of the dense-trunk train step (batch 16,
@@ -68,7 +76,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             on the label side one EDT call of 13 launches (512 px) or 14
             (1024 px) and one K8 launch (no K6); finite rows, a falling
             loss, the median warm step, patches/s and peak memory.
-10. kernels line, then the last line {"ok": true, "device": {...}}.
+10. train_wide, train_wide_1024, train_seg2, train_tail1 - the reference's
+            opt-in train modes (ResUnetA arguments, TRAIN_MODES), 3 steps
+            each: bwd_wide at 256 px x 16 and 1024 px x 2 (per step 56 K1
+            launches and 56 K2 calls, 12 of them K9), segment_mode="2" at
+            256 px (no K1, 44 K2 calls from K10's backward, NHWC: no K3,
+            K4), dense_tail="1" at 256 px (49 and 49); the other counts as
+            the default step's; then each mode's 64 px f32 step, card
+            against the CPU plain path.
+11. kernels line (K1-K10), then the last line
+            {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is false
 or the package is not beside this file.
@@ -94,10 +111,22 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # K1 shapes on the inference path: (C, H=W, dilations); launches per forward
 # = 2 segments per dilation x (encoder + decoder ResBlock), C=128 has 3
-# dilations in each; C=256 is the opt-in wide tier (K9), held but not routed
+# dilations in each
 K1_LEVELS = ((32, 256, (1, 3, 15, 31)), (64, 128, (1, 3, 15, 31)),
              (128, 64, (1, 3, 15)))
-K9_SHAPE = (256, 32, (1,))
+# the opt-in wide tier's segments (K1 forward, K9 backward): (C, H=W,
+# batch, dilations, path). Eval (fwd_wide): RB(256) at 32^2 and RB(512) at
+# 16^2 of a 32-patch 256 px forward; train (bwd_wide): RB(256) at 32^2 x 16
+# (256 px), 64^2 x 8 (512 px) and 128^2 x 2 (1024 px). 4 launches (calls)
+# a dilation: 2 segments in the encoder's and the decoder's block.
+WIDE_LEVELS = ((256, 32, BATCH, (1, 3, 15), "slice_wide"),
+               (512, 16, BATCH, (1,), "slice_wide"),
+               (256, 32, 16, (1, 3, 15), "train_wide"),
+               (256, 64, 8, (1, 3, 15), "train_wide_512"),
+               (256, 128, 2, (1, 3, 15), "train_wide_1024"))
+# K1 per 32-patch forward with fwd_wide, and K1 / K2 calls per train step
+# with bwd_wide or tail mode "1"
+WIDE_FWD_K1, WIDE_TRAIN_SEGMENTS, TAIL1_SEGMENTS = 60, 56, 49
 K1_RTOL = K1_ATOL = 0.02
 SEG_ATOL = 1e-2
 # the train step: batch, steps on one batch, heads
@@ -231,12 +260,15 @@ def k1_bound(N, H, W, C, itemsize=2):
 
 
 def phase_k1(convseg, F):
+    """K1 at the inference path's shapes (on_path) and at the wide tier's
+    (WIDE_LEVELS, `path` names the phase that runs them)."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    shapes = [(C, S, d, True) for C, S, ds in K1_LEVELS for d in ds] + \
-        [(K9_SHAPE[0], K9_SHAPE[1], d, False) for d in K9_SHAPE[2]]
-    for C, S, d, on_path in shapes:
-        N = BATCH
+    shapes = [(C, S, BATCH, d, "slice") for C, S, ds in K1_LEVELS
+              for d in ds] + [(C, S, N, d, path) for C, S, N, ds, path
+                              in WIDE_LEVELS for d in ds]
+    for C, S, N, d, path in shapes:
+        on_path = path == "slice"
         x = torch.randn((N, S, S, C), generator=g, device="cuda").to(
             torch.bfloat16)
         a = torch.rand(C, generator=g, device="cuda") + 0.5
@@ -269,25 +301,31 @@ def phase_k1(convseg, F):
             x, a, b, w, bias, dilation=d), reps=3, warmup=1)
         bound_ms, bound_by, flops, nbytes = k1_bound(N, S, S, C)
         row = {"phase": "k1", "N": N, "H": S, "W": S, "C": C, "d": d,
-               "on_path": on_path, "max_abs_err": max_err,
+               "on_path": on_path, "path": path, "max_abs_err": max_err,
                "tolerance": f"|err| <= {K1_ATOL} + {K1_RTOL}*|plain|",
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                # 2 segments per dilation, in the encoder and decoder block
-               "launches_per_forward": 4 if on_path else 0}
+               "launches_per_forward": 4 if on_path else 0,
+               "launches_per_unit": 4}
         emit(row)
         rows.append(row)
         del x, got, want, z, err
     return rows
 
 
-def phase_slice(models, sliding, convseg, smi):
+def phase_slice(models, sliding, convseg, smi, fwd_wide=False):
+    """Serving: the scene through predict_scene, K1 launches per batch (44,
+    or WIDE_FWD_K1 with fwd_wide), the ids, a warm pass, and one patch's
+    seg probabilities of the f32 model, card against the CPU plain path."""
     rng = np.random.default_rng(SEED)
     scene = rng.integers(0, 256, (SCENE, SCENE, 3), dtype=np.uint8)
+    per_batch = WIDE_FWD_K1 if fwd_wide else 44
     model = models.ResUnetA(NUM_CLASSES, img_size=PATCH, multitasking=True,
                             dtype=torch.bfloat16,
-                            generator=torch.Generator().manual_seed(SEED))
+                            generator=torch.Generator().manual_seed(SEED),
+                            fwd_wide=fwd_wide)
     n_params = sum(p.numel() for p in model.parameters())
     ids_fn = sliding.make_seg_ids_fn(model, norm_type=1)
 
@@ -299,8 +337,9 @@ def phase_slice(models, sliding, convseg, smi):
     first_s = time.time() - t0
     launches = convseg.LAUNCHES
     n_batches = math.ceil((SCENE // PATCH) ** 2 / BATCH)
-    if launches != 44 * n_batches:
-        fail(f"K1 launched {launches} times, expected {44 * n_batches}")
+    if launches != per_batch * n_batches:
+        fail(f"K1 launched {launches} times, expected "
+             f"{per_batch * n_batches}")
     if cmap.shape != (SCENE, SCENE) or ids.dtype != np.uint8 or \
             int(ids.max()) >= NUM_CLASSES:
         fail(f"bad ids: {cmap.shape} {ids.dtype} max {ids.max()}")
@@ -321,7 +360,7 @@ def phase_slice(models, sliding, convseg, smi):
     m32 = models.ResUnetA(NUM_CLASSES, img_size=PATCH, multitasking=True,
                           dtype=torch.float32,
                           generator=torch.Generator().manual_seed(SEED),
-                          device="cpu")
+                          device="cpu", fwd_wide=fwd_wide)
     patch = scene[None, :PATCH, :PATCH]
     x = torch.from_numpy(patch).float() / 255.0
     with torch.inference_mode():
@@ -338,7 +377,8 @@ def phase_slice(models, sliding, convseg, smi):
         fail(f"card vs CPU seg probabilities: max abs err {err}, argmax "
              f"agreement {agree} on decided pixels")
 
-    row = {"phase": "slice", "model": "ResUnetA d6 multitask",
+    row = {"phase": "slice_wide" if fwd_wide else "slice",
+           "model": "ResUnetA d6 multitask", "fwd_wide": fwd_wide,
            "params": n_params, "patch": PATCH, "batch": BATCH,
            "dtype": "bfloat16", "scene": [SCENE, SCENE],
            "patches": (SCENE // PATCH) ** 2, "batches": n_batches,
@@ -365,61 +405,152 @@ def k2_bound(N, H, W, C):
     return (*bound(flops, nbytes), flops, nbytes)
 
 
+# K2's shapes beside the 11 of the 256 px step: K9's (WIDE_LEVELS' train
+# rows) and the dense tail's head segments without the ReLU (seg1, Conv_6,
+# Conv_8: C = 32 at 256^2, d = 1, 3 calls a step); (C, H=W, batch, d, act,
+# path, calls a step)
+K2_SHAPES = tuple((C, S, TRAIN_BATCH, d, True, "train", 4)
+                  for C, S, ds in K1_LEVELS for d in ds) + \
+    tuple((C, S, N, d, True, path, 4) for C, S, N, ds, path in WIDE_LEVELS
+          if path.startswith("train") for d in ds) + \
+    ((32, PATCH, TRAIN_BATCH, 1, False, "train_tail1", 3),)
+
+
+def segment_inputs(g, N, S, C):
+    """Random bf16 x and g, BN parameters and statistics, and taps of one
+    train segment on the card."""
+    x = torch.randn((N, S, S, C), generator=g, device="cuda").to(
+        torch.bfloat16)
+    gr = torch.randn((N, S, S, C), generator=g, device="cuda").to(
+        torch.bfloat16)
+    gamma = torch.rand(C, generator=g, device="cuda") + 0.5
+    beta = torch.randn(C, generator=g, device="cuda") * 0.2
+    mean = torch.randn(C, generator=g, device="cuda") * 0.1
+    var = torch.rand(C, generator=g, device="cuda") + 0.5
+    w = torch.randn((3, 3, C, C), generator=g, device="cuda") / \
+        (3.0 * C ** 0.5)
+    return x, gr, gamma, beta, mean, var, w
+
+
 def phase_k2(convseg):
+    """K2 at the 256 px step's 11 shapes, K9 (C = 256) at the wide tier's
+    train shapes and K2 without the ReLU (K2_SHAPES): the seven cotangents
+    against the plain version; the kernel, the plain version and one cuDNN
+    convolution_backward of the same precomputed bf16 z and g timed."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
-    for C, S, ds in K1_LEVELS:
-        for d in ds:
-            N = TRAIN_BATCH
-            x = torch.randn((N, S, S, C), generator=g, device="cuda").to(
-                torch.bfloat16)
-            gr = torch.randn((N, S, S, C), generator=g, device="cuda").to(
-                torch.bfloat16)
-            gamma = torch.rand(C, generator=g, device="cuda") + 0.5
-            beta = torch.randn(C, generator=g, device="cuda") * 0.2
-            mean = torch.randn(C, generator=g, device="cuda") * 0.1
-            var = torch.rand(C, generator=g, device="cuda") + 0.5
-            w = torch.randn((3, 3, C, C), generator=g, device="cuda") / \
-                (3.0 * C ** 0.5)
-            a, b, invstd = convseg.segment_affine(gamma, beta, mean, var)
-            args = (x, gr, a, b, mean, invstd, w)
+    for C, S, N, d, act, path, calls in K2_SHAPES:
+        x, gr, gamma, beta, mean, var, w = segment_inputs(g, N, S, C)
+        a, b, invstd = convseg.segment_affine(gamma, beta, mean, var)
+        args = (x, gr, a, b, mean, invstd, w)
 
-            # the seven cotangents (dx, dgamma, dbeta, dmean, dvar, dW, dbias)
-            got = convseg.fold_cotangents(
-                *convseg.segment_bwd(*args, dilation=d), gamma, invstd)
-            want = convseg.fold_cotangents(
-                *convseg.segment_bwd_reference(*args, dilation=d), gamma,
-                invstd)
-            torch.cuda.synchronize()
-            max_err = max(check_close(
-                f"K2 output {k} at C={C} {S}x{S} d={d}", gt, wt)
-                for k, (gt, wt) in enumerate(zip(got, want)))
+        # the seven cotangents (dx, dgamma, dbeta, dmean, dvar, dW, dbias)
+        got = convseg.fold_cotangents(
+            *convseg.segment_bwd(*args, dilation=d, act=act), gamma, invstd)
+        want = convseg.fold_cotangents(
+            *convseg.segment_bwd_reference(*args, dilation=d, act=act),
+            gamma, invstd)
+        torch.cuda.synchronize()
+        max_err = max(check_close(
+            f"K2 output {k} at C={C} {S}x{S} d={d} act={act}", gt, wt)
+            for k, (gt, wt) in enumerate(zip(got, want)))
 
-            # library yardstick: cuDNN's dgrad + wgrad + bias of the same
-            # precomputed bf16 z and g (no BN sums, no mask, no dx scaling)
-            z = torch.relu(x.float() * a + b).to(torch.bfloat16) \
-                .permute(0, 3, 1, 2)
-            gl = gr.permute(0, 3, 1, 2)
-            wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-                memory_format=torch.channels_last)
-            ms = cuda_ms(lambda: convseg.segment_bwd(*args, dilation=d),
-                         reps=10)
-            lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+        # library yardstick: cuDNN's dgrad + wgrad + bias of the same
+        # precomputed bf16 z and g (no BN sums, no mask, no dx scaling)
+        z = x.float() * a + b
+        z = (torch.relu(z) if act else z).to(torch.bfloat16) \
+            .permute(0, 3, 1, 2)
+        gl = gr.permute(0, 3, 1, 2)
+        wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        ms = cuda_ms(lambda: convseg.segment_bwd(*args, dilation=d,
+                                                 act=act), reps=10)
+        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gl, z, wl, [C], [1, 1], [d, d], [d, d], False, [0, 0], 1,
+            [True, True, True]), reps=10)
+        plain_ms = cuda_ms(lambda: convseg.segment_bwd_reference(
+            *args, dilation=d, act=act), reps=3, warmup=1)
+        bound_ms, bound_by, flops, nbytes = k2_bound(N, S, S, C)
+        row = {"phase": "k2", "N": N, "H": S, "W": S, "C": C, "d": d,
+               "act": act, "path": path,
+               "kernel": "K9" if C > 128 else "K2",
+               "max_abs_err": max_err,
+               "tolerance": TOLERANCE,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "calls_per_step": calls}
+        emit(row)
+        rows.append(row)
+        del x, gr, got, want, z, gl
+    return rows
+
+
+def phase_k10(convseg, F):
+    """K10, the mode-"2" segment (FusedSegmentBwdOnly: a plain forward,
+    K2 backward), at the 11 shapes of the 256 px step, batch 16: the output
+    and the seven gradients through autograd against the plain version
+    (the same forward, K2's plain version), at check_close's limits. Times
+    the forward + K2, the forward + K2's plain version, and cuDNN's conv
+    and convolution_backward of a precomputed bf16 z (library_ms); the
+    bound is K1's plus K2's."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rows = []
+    for C, S, N, d, act, path, calls in K2_SHAPES:
+        if path != "train":
+            continue
+        x, gr, gamma, beta, mean, var, w = segment_inputs(g, N, S, C)
+        bias = torch.randn(C, generator=g, device="cuda") * 0.1
+
+        # y and the seven gradients through autograd
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  (x, gamma, beta, mean, var, w, bias)]
+        y = convseg.fused_segment(*leaves, dilation=d, bwd_only=True)
+        got = [y] + list(torch.autograd.grad(y, leaves, gr))
+        torch.cuda.synchronize()
+        a, b, invstd = convseg.segment_affine(gamma, beta, mean, var)
+        want = [convseg.bwdonly_forward(x, a, b, w, bias, dilation=d),
+                *convseg.fold_cotangents(*convseg.segment_bwd_reference(
+                    x, gr, a, b, mean, invstd, w, dilation=d), gamma,
+                    invstd)]
+        max_err = max(check_close(f"K10 output {k} at C={C} {S}x{S} d={d}",
+                                  gt, wt)
+                      for k, (gt, wt) in enumerate(zip(got, want)))
+
+        z = torch.relu(x.float() * a + b).to(torch.bfloat16) \
+            .permute(0, 3, 1, 2)
+        gl = gr.permute(0, 3, 1, 2)
+        wl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        bl = bias.to(torch.bfloat16)
+        args = (x, gr, a, b, mean, invstd, w)
+        ms = cuda_ms(lambda: (convseg.bwdonly_forward(x, a, b, w, bias,
+                                                      dilation=d),
+                              convseg.segment_bwd(*args, dilation=d)),
+                     reps=10)
+        lib_ms = cuda_ms(lambda: (
+            F.conv2d(z, wl, bl, padding=d, dilation=d),
+            torch.ops.aten.convolution_backward(
                 gl, z, wl, [C], [1, 1], [d, d], [d, d], False, [0, 0], 1,
-                [True, True, True]), reps=10)
-            plain_ms = cuda_ms(lambda: convseg.segment_bwd_reference(
-                *args, dilation=d), reps=3, warmup=1)
-            bound_ms, bound_by, flops, nbytes = k2_bound(N, S, S, C)
-            row = {"phase": "k2", "N": N, "H": S, "W": S, "C": C, "d": d,
-                   "max_abs_err": max_err,
-                   "tolerance": TOLERANCE,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                   "calls_per_step": 4}
-            emit(row)
-            rows.append(row)
-            del x, gr, got, want, z, gl
+                [True, True, True])), reps=10)
+        plain_ms = cuda_ms(lambda: (
+            convseg.bwdonly_forward(x, a, b, w, bias, dilation=d),
+            convseg.segment_bwd_reference(*args, dilation=d)),
+            reps=3, warmup=1)
+        b1, _, f1, n1 = k1_bound(N, S, S, C)
+        b2, _, f2, n2 = k2_bound(N, S, S, C)
+        bound_ms, bound_by = bound(f1 + f2, n1 + n2)
+        row = {"phase": "k10", "N": N, "H": S, "W": S, "C": C, "d": d,
+               "max_abs_err": max_err, "tolerance": TOLERANCE,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "cuDNN conv + convolution_backward of a "
+                          "precomputed bf16 z (no BN sums)",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "gflop": (f1 + f2) / 1e9, "mbytes": (n1 + n2) / 1e6,
+               "calls_per_step": calls}
+        emit(row)
+        rows.append(row)
+        del x, gr, got, want, z, gl, leaves, y
     return rows
 
 
@@ -770,17 +901,18 @@ def rel_l2(a, b, atol=1e-6):
     return 0.0 if d <= atol else d / max(b.norm().item(), 1e-12)
 
 
-def step_64px(device, raw):
+def step_64px(device, raw, **modes):
     """One 64 px, bs 2, f32 dense-trunk train step from seeded weights on
-    `device`: the metrics row, every parameter's gradient and every BN
-    running buffer, in f64 on the CPU."""
+    `device`, in the opt-in `modes` (ResUnetA arguments): the metrics row,
+    every parameter's gradient and every BN running buffer, in f64 on the
+    CPU."""
     from resuneta_torch import losses, models
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.train import create_train_state, make_train_step
 
     model = models.ResUnetA(NUM_CLASSES, img_size=64, dtype=torch.float32,
                             generator=torch.Generator().manual_seed(SEED + 7),
-                            device=device, dense_trunk=True)
+                            device=device, dense_trunk=True, **modes)
     state = create_train_state(model, "adam", 1e-4)
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in HEADS}, True,
@@ -811,12 +943,13 @@ def step_errors(got, want):
         "bn_running_rel_l2": max(rel_l2(bg[k], bw[k]) for k in bw)}
 
 
-def step_card_vs_cpu():
-    """The 64 px, bs 2, f32 dense-trunk step on the card (TF32 off) against
-    the CPU plain path, from the same weights and batch, and the CPU with
-    one thread against the CPU with many, the same readings of the order
-    of sums alone. Returns the readings, the kernel launches of the card's
-    step, and the names of the readings past STEP_TOL."""
+def step_card_vs_cpu(threads=True, **modes):
+    """The 64 px, bs 2, f32 dense-trunk step (in the opt-in `modes`) on the
+    card (TF32 off) against the CPU plain path, from the same weights and
+    batch, and (with `threads`) the CPU with one thread against the CPU
+    with many, the same readings of the order of sums alone. Returns the
+    readings, the kernel launches of the card's step, and the names of the
+    readings past STEP_TOL."""
     from resuneta_torch.ops import (boundary, convseg, densemm, distance,
                                     poolconv)
 
@@ -824,38 +957,42 @@ def step_card_vs_cpu():
     raw = {"image_u8": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
            "label_ids": voronoi_ids(2, 64, NUM_CLASSES, rng),
            "aug": np.array([0, 3])}
-    cpu = step_64px("cpu", raw)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        cpu1 = step_64px("cpu", raw)
-    finally:
-        torch.set_num_threads(threads)
+    cpu = step_64px("cpu", raw, **modes)
+    out = {}
+    if threads:
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            cpu1 = step_64px("cpu", raw, **modes)
+        finally:
+            torch.set_num_threads(n)
+        out[f"cpu_1_vs_{n}_threads"] = step_errors(cpu1, cpu)
     counters = ((convseg, "LAUNCHES"), (convseg, "BWD_LAUNCHES"),
                 (densemm, "LAUNCHES"), (densemm, "BWD_LAUNCHES"),
                 (poolconv, "LAUNCHES"), (poolconv, "BWD_LAUNCHES"),
-                (distance, "LAUNCHES"), (boundary, "LAUNCHES"))
+                (distance, "LAUNCHES"), (boundary, "LAUNCHES"),
+                (convseg, "WIDE_BWD_LAUNCHES"),
+                (convseg, "BWDONLY_LAUNCHES"))
     before = [getattr(m, k) for m, k in counters]
     with convseg.no_tf32():
-        card = step_64px("cuda", raw)
+        card = step_64px("cuda", raw, **modes)
     torch.cuda.synchronize()
     launches = dict(zip(("K1", "K2", "K3", "K3_bwd", "K4", "K4_bwd",
-                         "K5/K7", "K6"),
+                         "K5/K7", "K6", "K9", "K10"),
                         (getattr(m, k) - c for (m, k), c in
                          zip(counters, before))))
     errs = step_errors(card, cpu)
-    return {"card_vs_cpu": errs,
-            "cpu_1_vs_{}_threads".format(threads): step_errors(cpu1, cpu),
+    return {"modes": modes, "card_vs_cpu": errs, **out,
             "tolerance": STEP_TOL, "launches": launches,
             "failed": [k for k, v in errs.items() if not v < STEP_TOL[k]]}
 
 
 def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
-                batch=TRAIN_BATCH):
-    """`steps` ISPRS train steps at full width from seeded weights, every
-    kernel count set to 0 just before and read just after. Returns (the
-    launches and calls by kernel, metric rows, step times, peak memory
-    after the first step, params)."""
+                batch=TRAIN_BATCH, **modes):
+    """`steps` ISPRS train steps at full width from seeded weights, in the
+    opt-in `modes` (ResUnetA arguments), every kernel count set to 0 just
+    before and read just after. Returns (the launches and calls by kernel,
+    metric rows, step times, peak memory after the first step, params)."""
     from resuneta_torch import losses
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.train import create_train_state, make_train_step
@@ -868,7 +1005,7 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
     model = models.ResUnetA(NUM_CLASSES, img_size=patch, multitasking=True,
                             dtype=torch.bfloat16,
                             generator=torch.Generator().manual_seed(SEED),
-                            dense_trunk=dense_trunk)
+                            dense_trunk=dense_trunk, **modes)
     state = create_train_state(model, "adam", 1e-4)
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in HEADS}, True,
@@ -884,7 +1021,9 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
                 "K4 bwd calls": (poolconv, "BWD_CALLS"),
                 "K5/K7": (distance, "LAUNCHES"),
                 "K6": (boundary, "LAUNCHES"),
-                "K8": (boundary, "TILED_LAUNCHES")}
+                "K8": (boundary, "TILED_LAUNCHES"),
+                "K9": (convseg, "WIDE_BWD_LAUNCHES"),
+                "K10": (convseg, "BWDONLY_LAUNCHES")}
     for m, k in counters.values():
         setattr(m, k, 0)
     rows, times = [], []
@@ -915,15 +1054,21 @@ LABEL_LAUNCHES = {256: {"K5/K7": 12, "K6": 1, "K8": 0},
                   1024: {"K5/K7": 14, "K6": 0, "K8": 1}}
 
 
-def expected_counts(steps, dense, patch=PATCH):
-    """Per step: 44 fused segments, each one K1 launch forward and one K2
-    call (4 launches) backward; on the dense trunk 12 K3 and 3 K4 calls
-    each way (one launch forward, three backward); LABEL_LAUNCHES."""
+def expected_counts(steps, dense, patch=PATCH, segments=44, k1=True,
+                    wide=0, bwd_only=False):
+    """Per step: `segments` fused segments, each one K1 launch forward
+    (none with k1=False: segment mode "2") and one K2 call (4 launches)
+    backward, `wide` of them at C = 256 (K9), all of them from
+    FusedSegmentBwdOnly's backward (K10) with bwd_only; on the dense
+    trunk's tail 12 K3 and 3 K4 calls each way (one launch forward, three
+    backward); LABEL_LAUNCHES."""
     k3, k4 = (12, 3) if dense else (0, 0)
-    per = {"K1": 44, "K2": 4 * 44, "K2 calls": 44, "K3": k3,
+    per = {"K1": segments if k1 else 0, "K2": 4 * segments,
+           "K2 calls": segments, "K3": k3,
            "K3 calls": k3, "K3 bwd": 3 * k3, "K3 bwd calls": k3, "K4": k4,
            "K4 calls": k4, "K4 bwd": 3 * k4, "K4 bwd calls": k4,
-           **LABEL_LAUNCHES[patch]}
+           **LABEL_LAUNCHES[patch], "K9": 4 * wide,
+           "K10": 4 * segments if bwd_only else 0}
     return {k: v * steps for k, v in per.items()}
 
 
@@ -1012,6 +1157,69 @@ def phase_train(models, mods, smi):
     return row
 
 
+# the reference's opt-in train modes at full width, 3 steps each: (phase,
+# ResUnetA arguments, patch, batch, expected_counts' arguments). bwd_wide
+# adds RB(256)'s 12 segments (K1 + K9; RB(512) stays a cuDNN conv, the
+# backward's wide ceiling being 256); segment mode "2" runs a plain
+# forward and K2 in the NHWC routing (the dense trunk and tail off); tail
+# mode "1" adds the five 3x3 head segments
+TRAIN_MODES = (
+    ("train_wide", {"bwd_wide": True}, PATCH, TRAIN_BATCH,
+     {"dense": True, "segments": WIDE_TRAIN_SEGMENTS, "wide": 12}),
+    ("train_wide_1024", {"bwd_wide": True}, 1024, 2,
+     {"dense": True, "segments": WIDE_TRAIN_SEGMENTS, "wide": 12}),
+    ("train_seg2", {"segment_mode": "2"}, PATCH, TRAIN_BATCH,
+     {"dense": False, "k1": False, "bwd_only": True}),
+    ("train_tail1", {"dense_tail": "1"}, PATCH, TRAIN_BATCH,
+     {"dense": True, "segments": TAIL1_SEGMENTS}),
+)
+MODE_STEPS = 3
+# the 64 px card-vs-CPU step of each mode (step_card_vs_cpu)
+MODES_64PX = ({"bwd_wide": True}, {"segment_mode": "2"},
+              {"dense_tail": "1"})
+
+
+def phase_train_modes(models, mods, smi):
+    """The opt-in modes' train steps (TRAIN_MODES): launches as
+    expected_counts gives them, finite rows, a falling loss; the median
+    warm step, patches/s and peak memory; then each mode's 64 px f32 step,
+    card against the CPU plain path, at STEP_TOL."""
+    out = {}
+    for name, modes, patch, batch, want_kw in TRAIN_MODES:
+        counts, rows, times, peak, params = train_steps(
+            models, MODE_STEPS, None, mods, patch=patch, batch=batch,
+            **modes)
+        want = expected_counts(MODE_STEPS, patch=patch, **want_kw)
+        if counts != want:
+            fail(f"{name} train counts {counts}, expected {want}")
+        if not rows[-1, 0] < rows[0, 0]:
+            fail(f"loss did not fall over {MODE_STEPS} steps in {name}: "
+                 f"{rows[:, 0]}")
+        med = median(times)
+        row = {"phase": name, "model": "ResUnetA d6 multitask",
+               "modes": modes, "params": params, "patch": patch,
+               "batch": batch, "dtype": "bfloat16", "steps": MODE_STEPS,
+               "launches": counts,
+               "launches_per_step": {k: v // MODE_STEPS
+                                     for k, v in counts.items()},
+               "first_step_s": times[0], "step_s": times,
+               "median_warm_step_s": med, "patches_per_s": batch / med,
+               "max_memory_allocated_bytes": peak,
+               "loss_first": float(rows[0, 0]),
+               "loss_last": float(rows[-1, 0]), "card": smi}
+        emit(row)
+        out[name] = row
+        torch.cuda.empty_cache()
+    for modes in MODES_64PX:
+        parity = step_card_vs_cpu(threads=False, **modes)
+        emit({"phase": "train_64px_f32_mode", **parity})
+        if parity["failed"]:
+            fail(f"64 px step in {modes}, card vs CPU: {parity['failed']} "
+                 f"past their limits: {parity['card_vs_cpu']} against "
+                 f"{STEP_TOL}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1029,7 +1237,9 @@ def main():
     smi = phase_build(build)
     rows = phase_k1(convseg, F)
     sl = phase_slice(models, sliding, convseg, smi)
+    sl_wide = phase_slice(models, sliding, convseg, smi, fwd_wide=True)
     k2_rows = phase_k2(convseg)
+    k10_rows = phase_k10(convseg, F)
     k3_rows = phase_k3(densemm, F)
     k4_rows = phase_k4(poolconv, F)
     labels = phase_labels(distance, boundary)
@@ -1040,6 +1250,8 @@ def main():
     for patch, batch, steps in TRAIN_LARGE:
         paths[f"train_{patch}"] = phase_train_large(
             models, mods, smi, patch, batch, steps)["launches"]
+    for name, row in phase_train_modes(models, mods, smi).items():
+        paths[name] = row["launches"]
 
     def launched(key):
         """Launches of a kernel on each train path that ran it, and in
@@ -1060,17 +1272,24 @@ def main():
         return out
 
     fwd = per([r for r in rows if r["on_path"]], "launches_per_forward")
-    bwd = per(k2_rows, "calls_per_step")
+    narrow = [r for r in k2_rows if r["path"] == "train"]
+    bwd = per(narrow, "calls_per_step")
     k1_train, k1_by = launched("K1")
     k2_all, k2_by = launched("K2")
+    k9_all, k9_by = launched("K9")
+    # K2's counter holds K9's launches too
+    k2_all -= k9_all
+    k2_by = {p: n - k9_by.get(p, 0) for p, n in k2_by.items()
+             if n - k9_by.get(p, 0)}
     kernels = [{
         "name": "K1 bn_act_conv (fused BN affine -> ReLU -> dilated 3x3 "
                 "conv)",
         "route": "cuda",
         "source": "resuneta_torch/kernels/csrc/convseg.cu",
         "replaces": "resuneta_tpu/ops/pallas/convseg.py:550",
-        "launches": sl["k1_launches"] + k1_train,
-        "launches_by_path": {"slice": sl["k1_launches"], **k1_by},
+        "launches": sl["k1_launches"] + sl_wide["k1_launches"] + k1_train,
+        "launches_by_path": {"slice": sl["k1_launches"],
+                             "slice_wide": sl_wide["k1_launches"], **k1_by},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "tolerance": rows[0]["tolerance"],
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -1084,7 +1303,8 @@ def main():
         "source": "resuneta_torch/kernels/csrc/convseg_bwd.cu",
         "replaces": "resuneta_tpu/ops/pallas/convseg.py:611",
         "launches": k2_all, "launches_by_path": k2_by,
-        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows
+                           if r["kernel"] == "K2"),
         "tolerance": k2_rows[0]["tolerance"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
@@ -1094,6 +1314,57 @@ def main():
         "calls": launched("K2 calls")[0],
         "per": "one 16-patch 256 px train step: the 44 calls (4 launches "
                "each) at their shapes",
+        "act_false": {k: v for r in k2_rows if not r["act"] for k, v in
+                      r.items() if k in ("C", "H", "N", "d", "ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "calls_per_step")},
+    }]
+    wide = {p: per([r for r in k2_rows if r["path"] == p],
+                   "calls_per_step")
+            for p in ("train_wide", "train_wide_512", "train_wide_1024")}
+    k9_fwd = {p: per([r for r in rows if r["path"] == p],
+                     "launches_per_unit")
+              for p in ("slice_wide", "train_wide", "train_wide_1024")}
+    k10 = per(k10_rows, "calls_per_step")
+    wide_kernels = [{
+        "name": "K9 segment_bwd at C = 256 (the wide tier's one-pass "
+                "backward: dgrad in 128-channel column tiles, wgrad in "
+                "128 x 64 tiles, BN sums); its forward is K1's kernel",
+        "route": "cuda",
+        "source": "resuneta_torch/kernels/csrc/convseg_bwd.cu",
+        "replaces": "resuneta_tpu/ops/pallas/convseg.py:611 (wide tier, "
+                    "RESUNETA_CONVSEG_BWD_WIDE=1)",
+        "launches": k9_all, "launches_by_path": k9_by,
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows
+                           if r["kernel"] == "K9"),
+        "tolerance": TOLERANCE,
+        **{k: wide["train_wide_1024"][k] for k in
+           ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "cuDNN convolution_backward of a precomputed bf16 z "
+                   "(no BN sums)",
+        "per": "one 2-patch 1024 px bwd_wide train step: the 12 calls at "
+               "C = 256, 128^2 (4 launches each)",
+        "at_256": wide["train_wide"], "at_512": wide["train_wide_512"],
+        "forward_k1": k9_fwd,
+    }, {
+        "name": "K10 FusedSegmentBwdOnly (segment mode 2: a plain BN "
+                "apply -> ReLU -> cuDNN conv forward, the K2 backward)",
+        "route": "cuda",
+        "source": "resuneta_torch/kernels/csrc/convseg_bwd.cu",
+        "replaces": "resuneta_tpu/ops/pallas/convseg.py:763 "
+                    "(fused_segment_bwdonly; its kernel the pallas_call at "
+                    ":611)",
+        "launches": launched("K10")[0], "launches_by_path":
+            launched("K10")[1],
+        "max_abs_err": max(r["max_abs_err"] for r in k10_rows),
+        "tolerance": TOLERANCE,
+        "ms": k10["ms"], "plain_ms": k10["plain_ms"],
+        "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
+        "library_ms": k10["library_ms"],
+        "library": k10_rows[0]["library"],
+        "per": "one 16-patch 256 px train step in segment mode 2: the 44 "
+               "segments' forward and backward (4 K2 launches each) at "
+               "their shapes",
     }]
     for key, krows, name, src, rep in (
             ("K3", k3_rows, "K3 dense_mm (1x1 conv over concat parts: "
@@ -1169,7 +1440,7 @@ def main():
             entry["also_replaces"] = "resuneta_tpu/ops/pallas/jfa.py:221"
             entry["ms_by_tile"] = labels["k5_tiles_256"]["ms_by_tile"]
         kernels.append(entry)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels + wide_kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

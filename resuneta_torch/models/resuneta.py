@@ -24,8 +24,8 @@ Train mode runs one of the reference's two routings (resuneta.py:502-523,
 :542-623), chosen by `dense_trunk`. In both, every first BN of a
 ResBlock's branches normalises the block input with ONE shared statistics
 pass (each still updates its own running buffers), the 1x1 ConvBNs use
-batch statistics, and the heads are plain convs (segment mode "1", tail
-mode "0" or "2").
+batch statistics, and by default the heads are plain convs (segment mode
+"1", tail mode "0" or "2").
 - NHWC (what the reference runs off the TPU): every 1x1 conv is a cuDNN
   conv, PSP pools through max_pool2d, concat and upsample materialise.
 - Dense trunk (the reference's TPU default, and the card's here): the
@@ -36,6 +36,23 @@ mode "0" or "2").
   and the PSP's pooled levels through K4 (ops/poolconv.py, pool fused,
   ties splitting the gradient); the deep levels (C >= 256) and the heads
   stay as in NHWC. The parameter tree is the same in both.
+The reference's opt-in modes, its environment switches, are constructor
+arguments here, off by default:
+- `segment_mode` (RESUNETA_FUSED_TRAIN_SEGMENT, resuneta.py:146-155,
+  :319-334): "1" the fused segment above; "0" every train segment is the
+  BN apply -> ReLU -> conv; "2" (K10) a plain forward with K2's backward
+  (convseg.FusedSegmentBwdOnly). "0" and "2" switch the dense trunk and
+  the dense tail off (resuneta.py:518-519, :650).
+- `fwd_wide`, `bwd_wide` (RESUNETA_CONVSEG_{FWD,BWD}_WIDE=1,
+  convseg.py:224-235): the eval segments with C % 128 == 0 up to 512
+  (RB(256), RB(512)) through K1, the train ones up to 256 (RB(256))
+  through K1 + K9.
+- `dense_tail` (RESUNETA_DENSE_TAIL, resuneta.py:615-653): None today's
+  tail (mode "2" on the dense trunk, "0" in NHWC); "0" the NHWC Combine,
+  PSP and heads; "2" Combine_5 and PSPPooling_1 through K3/K4 and the NHWC
+  heads; "1" that and the five 3x3 head convs as fused segments on an
+  identity affine (K1 + K2; seg1, Conv_6 and Conv_8 without the ReLU),
+  the 5- and 3-channel 1x1 logits staying plain convs (resuneta.py:701-775).
 In eval a BN after a 1x1 conv folds into the conv weights (epilogue). PSP
 pool levels are gated on the build-time img_size, not on the input.
 
@@ -77,19 +94,25 @@ class Conv(nn.Module):
     """Convolution with the reference's fusion hooks (resuneta.py:54-189):
 
     * prologue=(a, b): a preceding BN's affine (eval); act(x*a + b) -> conv
-      runs through K1 where convseg.available holds;
-    * bn_raw=(scale, bias, mean, var): a preceding train-mode BN and its
-      ReLU (resuneta.py:137-155; every such segment of the model has the
-      ReLU); the segment runs as convseg.FusedSegment (K1 + K2) where
-      convseg.available holds, else as the closed-form BN apply -> ReLU ->
-      conv;
+      runs through K1 where convseg.available(bwd=False, wide=fwd_wide)
+      holds;
+    * bn_raw=(scale, bias, mean, var): a preceding train-mode BN and act
+      (resuneta.py:137-155); by segment_mode, where
+      convseg.available(wide=bwd_wide) holds, the segment runs as
+      convseg.FusedSegment (K1 + K2/K9, "1") or FusedSegmentBwdOnly (a
+      plain forward + K2/K9, "2"), and otherwise (and in mode "0") as the
+      closed-form BN apply -> act -> conv;
     * epilogue=(a, b): a following BN's affine folded into the weights,
       conv(x)*a + b == conv with (W*a, bias*a + b), then ReLU if act.
     """
 
     def __init__(self, in_features, features, kernel_size=3, dilation=1,
-                 stride=1, dtype=torch.float32, generator=None):
+                 stride=1, dtype=torch.float32, generator=None,
+                 segment_mode="1", fwd_wide=False, bwd_wide=False):
         super().__init__()
+        self.segment_mode = segment_mode
+        self.fwd_wide = fwd_wide
+        self.bwd_wide = bwd_wide
         k = kernel_size
         self.weight = nn.Parameter(
             _glorot_uniform((features, in_features, k, k), generator))
@@ -103,16 +126,19 @@ class Conv(nn.Module):
         w, bias, d = self.weight, self.bias, self.dilation
         if bn_raw is not None and self.kernel_size == 3:
             scale, beta, mean, var = bn_raw
-            if convseg.available(x.shape[3], x.shape[1], w.shape[0]):
+            if self.segment_mode != "0" and convseg.available(
+                    x.shape[3], x.shape[1], w.shape[0], wide=self.bwd_wide):
                 y = convseg.fused_segment(
                     nhwc(x).contiguous(), scale, beta, mean, var,
-                    w.permute(2, 3, 1, 0), bias, dilation=d)
+                    w.permute(2, 3, 1, 0), bias, dilation=d, act=act,
+                    bwd_only=self.segment_mode == "2")
                 return y.permute(0, 3, 1, 2)
             x = bn_apply(nhwc(x), scale, beta, mean, var, eps=1e-3,
-                         relu=True).permute(0, 3, 1, 2)
+                         relu=act).permute(0, 3, 1, 2)
         if prologue is not None and self.kernel_size == 3:
             a, b = prologue
-            if convseg.available(x.shape[3], x.shape[1], w.shape[0]):
+            if convseg.available(x.shape[3], x.shape[1], w.shape[0],
+                                 bwd=False, wide=self.fwd_wide):
                 # channels_last NCHW is NHWC-contiguous: no copy
                 y = convseg.bn_act_conv(
                     x.permute(0, 2, 3, 1).contiguous(), a, b,
@@ -178,17 +204,21 @@ class ResBlockA(nn.Module):
     """identity + sum over dilations of BN->ReLU->conv(d)->BN->ReLU->conv(d)
     (resuneta.py:306-341, _generic). Branch i owns BatchNorm_{2i}, Conv_{2i},
     BatchNorm_{2i+1}, Conv_{2i+1}. In train mode every branch's first BN
-    takes the block input's statistics from one shared pass."""
+    takes the block input's statistics from one shared pass. segment_mode,
+    fwd_wide and bwd_wide route the segments (Conv)."""
 
     def __init__(self, features, dilation_rates, dtype=torch.float32,
-                 generator=None):
+                 generator=None, segment_mode="1", fwd_wide=False,
+                 bwd_wide=False):
         super().__init__()
         self.dilation_rates = list(dilation_rates)
         for i, d in enumerate(self.dilation_rates):
             for j in (2 * i, 2 * i + 1):
                 self.add_module(f"BatchNorm_{j}", BatchNorm(features, act=True))
                 self.add_module(f"Conv_{j}", Conv(
-                    features, features, 3, d, dtype=dtype, generator=generator))
+                    features, features, 3, d, dtype=dtype, generator=generator,
+                    segment_mode=segment_mode, fwd_wide=fwd_wide,
+                    bwd_wide=bwd_wide))
 
     def forward(self, x):
         shared = bn_stats(nhwc(x)) if self.training else None
@@ -312,37 +342,54 @@ class ResUnetA(nn.Module):
     becomes this argument): None, the reference's default, runs the dense
     trunk where its kernels run (the model on the card) and NHWC on the
     CPU, as the reference is off the TPU; True and False force it on and
-    off. On needs the reference's geometry (H == W, W % 32 == 0, W >= 64);
-    elsewhere, and in eval, the model runs NHWC."""
+    off. On needs the reference's geometry (H == W, W % 32 == 0, W >= 64)
+    and segment mode "1"; elsewhere, and in eval, the model runs NHWC.
+
+    segment_mode ("0", "1", "2"), fwd_wide, bwd_wide and dense_tail (None,
+    "0", "1", "2") are the reference's opt-in modes (module doc); their
+    defaults give the routing above. The parameter tree is the same in
+    every mode, so convert.from_flax serves them all."""
 
     def __init__(self, num_classes, img_size=256, multitasking=True,
                  color_head=True, dtype=torch.float32, in_channels=3,
-                 generator=None, device=None, dense_trunk=None):
+                 generator=None, device=None, dense_trunk=None,
+                 segment_mode="1", fwd_wide=False, bwd_wide=False,
+                 dense_tail=None):
         super().__init__()
+        if segment_mode not in ("0", "1", "2"):
+            raise ValueError(f"segment_mode must be '0', '1' or '2', got "
+                             f"{segment_mode!r}")
+        if dense_tail not in (None, "0", "1", "2"):
+            raise ValueError(f"dense_tail must be None, '0', '1' or '2', "
+                             f"got {dense_tail!r}")
         dev = resolve_device(device)
         g = generator if generator is not None else \
             torch.Generator().manual_seed(0)
         self.dense_trunk = dense_trunk
+        self.segment_mode = segment_mode
+        self.dense_tail = dense_tail
         self.num_classes = num_classes
         self.img_size = img_size
         self.multitasking = multitasking
         self.color_head = color_head
         self.dtype = dtype
         kw = dict(dtype=dtype, generator=g)
+        rb = dict(kw, segment_mode=segment_mode, fwd_wide=fwd_wide,
+                  bwd_wide=bwd_wide)
 
         self.Conv_0 = Conv(in_channels, 32, 1, **kw)
         prev = 32
         for i, (f, dil) in enumerate(_ENCODER):
             if i:
                 self.add_module(f"Conv_{i}", Conv(prev, f, 1, stride=2, **kw))
-            self.add_module(f"ResBlockA_{i}", ResBlockA(f, dil, **kw))
+            self.add_module(f"ResBlockA_{i}", ResBlockA(f, dil, **rb))
             prev = f
         self.PSPPooling_0 = PSPPooling(1024, img_size, act=True, **kw)
         skips = [f for f, _ in _ENCODER[:5]][::-1]  # c6 .. c2 channels
         for i, ((up_f, f, dil), skip) in enumerate(zip(_DECODER, skips)):
             self.add_module(f"UpSampleConv_{i}", UpSampleConv(prev, up_f, **kw))
             self.add_module(f"Combine_{i}", Combine(up_f, skip, f, **kw))
-            self.add_module(f"ResBlockA_{6 + i}", ResBlockA(f, dil, **kw))
+            self.add_module(f"ResBlockA_{6 + i}", ResBlockA(f, dil, **rb))
             prev = f
         self.Combine_5 = Combine(32, 32, 32, **kw)
         self.PSPPooling_1 = PSPPooling(32, img_size, act=True, **kw)
@@ -367,14 +414,33 @@ class ResUnetA(nn.Module):
     def uses_dense_trunk(self, H, W):
         """The routing of a train-mode forward on H x W input (class
         doc)."""
-        if not self.training or self.dense_trunk is False:
+        if not self.training or self.dense_trunk is False or \
+                self.segment_mode != "1":
             return False
         if H != W or W % 32 or W < 64:
             return False
         return self.dense_trunk or self.Conv_0.weight.is_cuda
 
+    def tail_mode(self, H, W):
+        """The tail of a train-mode forward on H x W input
+        (resuneta.py:615-653): "0" NHWC, "2" Combine_5 and PSPPooling_1
+        through K3/K4 with the NHWC heads, "1" that and the fused head
+        segments. dense_tail=None gives "2" on the dense trunk, else "0";
+        an explicit mode holds on the dense trunk, and without it where
+        the reference's geometry does ((W*32) % 128 == 0, H and W
+        multiples of 8); segment modes "0" and "2" and eval give "0"."""
+        if not self.training or self.segment_mode != "1":
+            return "0"
+        dense = self.uses_dense_trunk(H, W)
+        if self.dense_tail is None:
+            return "2" if dense else "0"
+        if dense or ((W * 32) % 128 == 0 and H % 8 == 0 and W % 8 == 0):
+            return self.dense_tail
+        return "0"
+
     def forward(self, x):
         dense = self.uses_dense_trunk(x.shape[1], x.shape[2])
+        tail = self.tail_mode(x.shape[1], x.shape[2])
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last
         c1 = x = self.Conv_0(x)
         skips = []
@@ -395,8 +461,10 @@ class ResUnetA(nn.Module):
             x = getattr(self, f"Combine_{i}")(x, skip, dense=d,
                                               ups=2 if d else 1)
             x = getattr(self, f"ResBlockA_{6 + i}")(x)
-        x_comb = self.Combine_5(x, c1, dense=dense)
-        x_psp = self.PSPPooling_1(x_comb, dense=dense)
+        x_comb = self.Combine_5(x, c1, dense=tail != "0")
+        x_psp = self.PSPPooling_1(x_comb, dense=tail != "0")
+        if tail == "1":
+            return self._fused_heads(x_comb, x_psp)
         return self._heads(x_comb, x_psp)
 
     def _heads(self, x_comb, x_psp):
@@ -414,6 +482,42 @@ class ResUnetA(nn.Module):
         d = torch.relu(self.Conv_8(x_comb))
         d = torch.relu(self.Conv_9(d))
         out["dist"] = nhwc(torch.softmax(self.Conv_10(d).float(), dim=1))
+        if self.color_head:
+            out["color"] = nhwc(torch.sigmoid(self.Conv_11(x_comb).float()))
+        return out
+
+    def _fused_heads(self, x_comb, x_psp):
+        """Tail mode "1" (resuneta.py:701-775): the five 3x3 head convs as
+        fused segments on an identity affine, in the reference's order,
+        the ReLU between two head convs fused into the second (seg1, Conv_6
+        and Conv_8 take none); the 1x1 logits stay plain convs (the
+        reference's densemm rejects 5 and 3 output channels and runs them
+        NHWC)."""
+        C = x_psp.shape[1]
+        ones = torch.ones(C, device=x_psp.device)
+        zeros = torch.zeros(C, device=x_psp.device)
+        # a = γ·rsqrt(var + 1e-3) = rsqrt(1) = 1 bit for bit, b = 0
+        # (resuneta.py:129-131)
+        identity = (ones, zeros, zeros, ones - 1e-3)
+
+        def head3(conv, x, act):
+            if convseg.available(x.shape[3], x.shape[1], C):
+                return conv(x, bn_raw=identity, act=act)
+            return conv(torch.relu(x) if act else x)
+
+        def nhwc(t):
+            return t.permute(0, 2, 3, 1)
+
+        if not self.multitasking:
+            return nhwc(torch.softmax(self.Conv_6(x_psp).float(), dim=1))
+        s = head3(self.seg2, head3(self.seg1, x_psp, False), True)
+        out = {"seg": nhwc(torch.softmax(
+            self.seg3(torch.relu(s)).float(), dim=1))}
+        b = head3(self.Conv_6, x_psp, False)
+        out["bound"] = nhwc(torch.sigmoid(self.Conv_7(torch.relu(b)).float()))
+        d = head3(self.Conv_9, head3(self.Conv_8, x_comb, False), True)
+        out["dist"] = nhwc(torch.softmax(
+            self.Conv_10(torch.relu(d)).float(), dim=1))
         if self.color_head:
             out["color"] = nhwc(torch.sigmoid(self.Conv_11(x_comb).float()))
         return out

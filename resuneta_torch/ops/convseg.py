@@ -1,5 +1,5 @@
 """The fused ResBlock branch segment BN -> ReLU -> dilated 3x3 conv, NHWC:
-K1 (forward) and K2 (backward).
+K1 (forward), K2 (backward) and its wide tier K9 (C = 256).
 
 K1:  y = conv_{3x3, dilation d, SAME zero pad}(z) + bias,  z = act(x * a + b)
 
@@ -15,16 +15,28 @@ K2 is the one-pass backward of the train segment (convseg.py:387-500,
 _bwd_kernel): from x and the output cotangent g it recomputes z and gives
 dx, the nine weight-gradient taps and the per-channel sums S1, S2, dc, which
 `fold_cotangents` turns into the seven cotangents (convseg.py:699-715).
-`FusedSegment` is the autograd.Function that pairs the two
-(convseg.py:676-727, fused_segment).
+K9 is the same backward at C = 256 (the reference's opt-in wide tier,
+RESUNETA_CONVSEG_BWD_WIDE=1), one CUDA source with K2. Both take act =
+False too (z = x*a + b, no ReLU mask), as _bwd_kernel's `act` does.
+
+The train segment comes in the reference's two fused modes
+(RESUNETA_FUSED_TRAIN_SEGMENT, resuneta.py:146-155):
+- "1", `FusedSegment` (convseg.py:676-727, fused_segment): K1 forward, K2
+  (or K9) backward;
+- "2", `FusedSegmentBwdOnly` (K10, convseg.py:763-790,
+  fused_segment_bwdonly): a plain forward (BN apply -> ReLU -> conv in x's
+  dtype, + bias in x's dtype) with the same K2 backward, which recomputes z
+  from x and so does not depend on how the forward ran.
 
 `bn_act_conv` and `segment_bwd` are the wrappers: on a CUDA tensor each
 launches its CUDA kernels (kernels/csrc/convseg.cu, convseg_bwd.cu) or
 raises; only a tensor on the CPU takes the plain version
 (`bn_act_conv_reference`, `segment_bwd_reference`). `LAUNCHES` counts K1's
 kernel launches (one a call) and `CALLS` K1 wrapper calls on any device;
-`BWD_LAUNCHES` counts K2's kernel launches (four a call on the card, as the
-CUDA side reports them) and `BWD_CALLS` its wrapper calls.
+`BWD_LAUNCHES` counts K2's and K9's kernel launches (four a call on the
+card, as the CUDA side reports them) and `BWD_CALLS` their wrapper calls;
+`WIDE_BWD_LAUNCHES` those of them at C = 256 (K9); `BWDONLY_LAUNCHES` the
+launches made by FusedSegmentBwdOnly's backward (K10).
 """
 
 import contextlib
@@ -39,20 +51,37 @@ LAUNCHES = 0
 CALLS = 0
 BWD_LAUNCHES = 0
 BWD_CALLS = 0
+WIDE_BWD_LAUNCHES = 0
+BWDONLY_LAUNCHES = 0
 
 MAX_CHANNELS = 512
+# the backward's channel counts: K2's narrow tier and K9's wide one
+BWD_CHANNELS = (32, 64, 128, 256)
+# the reference's wide ceilings (convseg.py MAX_CHANNELS_FWD, _BWD_WIDE)
+WIDE_FWD_MAX, WIDE_BWD_MAX = 512, 256
 _fn = None
 _bwd_fn = None
 
 
-def available(W, C, Cout):
-    """The model's routing predicate for the eval and the train segment:
-    the reference's default gate (resuneta_tpu convseg.pallas_available,
-    bwd=False and bwd=True agree with the wide tiers off) without its TPU
-    backend and VMEM-plan checks: C == Cout, C in {32, 64, 128} and
-    (W*C) % 128 == 0. (The reference's 128 % C == 0 also admits C < 32,
-    which no ResBlock of the model has.)"""
-    return C == Cout and C in (32, 64, 128) and (W * C) % 128 == 0
+def available(W, C, Cout, *, bwd=True, wide=False):
+    """The model's routing predicate for the eval (bwd=False) and the train
+    (bwd=True) segment: the channel part of the reference's gate
+    (resuneta_tpu convseg.pallas_available, convseg.py:207-239) without its
+    TPU-backend and VMEM-plan checks. C == Cout and (W*C) % 128 == 0, with
+    C in {32, 64, 128} (the reference's 128 % C == 0 also admits C < 32,
+    which no ResBlock of the model has) or, with `wide` (the reference's
+    RESUNETA_CONVSEG_{FWD,BWD}_WIDE=1), C % 128 == 0 up to 512 for the
+    eval segment and 256 for the train one. Without the plan check the
+    function is the same and only the route differs: with wide=True the
+    C = 256 segments at 128x128 (the 1024 px step) take K1 + K9 here,
+    where the reference's planner finds no VMEM plan and runs XLA's
+    conv."""
+    if C <= 128:
+        ch_ok = C in (32, 64, 128)
+    else:
+        ch_ok = wide and C % 128 == 0 and \
+            C <= (WIDE_BWD_MAX if bwd else WIDE_FWD_MAX)
+    return C == Cout and ch_ok and (W * C) % 128 == 0
 
 
 @contextlib.contextmanager
@@ -167,19 +196,21 @@ def segment_affine(gamma, beta, mean, var, eps=1e-3):
     return a, beta - mean * a, invstd
 
 
-def segment_bwd_reference(x, g, a, b, mean, invstd, w, *, dilation):
-    """The plain PyTorch version of K2, with the TPU kernel's roundings:
-    z_pre = x*a + b rounded once to f32 (as in K1), z = relu(z_pre) and the
-    taps in bf16,
-    g cast to x's dtype and then to bf16 for both products, f32 sums (an
-    f32 convolution_backward of the bf16 values, TF32 off: the products of
-    bf16 values are exact in f32), the ReLU mask from the f32 z_pre,
-    dx = dz_pre·a in x's dtype, dc from g in x's dtype.
+def segment_bwd_reference(x, g, a, b, mean, invstd, w, *, dilation,
+                          act=True):
+    """The plain PyTorch version of K2 and K9, with the TPU kernel's
+    roundings: z_pre = x*a + b rounded once to f32 (as in K1), z =
+    act(z_pre) and the taps in bf16, g cast to x's dtype and then to bf16
+    for both products, f32 sums (an f32 convolution_backward of the bf16
+    values, TF32 off: the products of bf16 values are exact in f32), the
+    ReLU mask from the f32 z_pre (none when act is False), dx = dz_pre·a in
+    x's dtype, dc from g in x's dtype.
 
     Returns (dx, dw (3, 3, C, Cout) f32, vec (3, C) f32 = [S1, S2, dc])."""
     d = int(dilation)
     zp = (x.double() * a.double() + b.double()).float()
-    zb = torch.relu(zp).to(torch.bfloat16).float().permute(0, 3, 1, 2)
+    z = torch.relu(zp) if act else zp
+    zb = z.to(torch.bfloat16).float().permute(0, 3, 1, 2)
     gx = g.to(x.dtype)
     gb = gx.to(torch.bfloat16).float().permute(0, 3, 1, 2)
     wt = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)
@@ -187,8 +218,9 @@ def segment_bwd_reference(x, g, a, b, mean, invstd, w, *, dilation):
         dz, dw, _ = torch.ops.aten.convolution_backward(
             gb, zb, wt, None, [1, 1], [d, d], [d, d], False, [0, 0], 1,
             [True, True, False])
-    dz = torch.where(zp > 0, dz.permute(0, 2, 3, 1),
-                     torch.zeros((), device=x.device))
+    dz = dz.permute(0, 2, 3, 1)
+    if act:
+        dz = torch.where(zp > 0, dz, torch.zeros((), device=x.device))
     dims = (0, 1, 2)
     xhat = (x.float() - mean) * invstd
     vec = torch.stack([dz.sum(dims), (dz * xhat).sum(dims),
@@ -206,9 +238,9 @@ def _check_bwd(x, g, a, b, mean, invstd, w, dilation):
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("x and g must be contiguous NHWC")
     C = x.shape[3]
-    if C not in (32, 64, 128):
+    if C not in BWD_CHANNELS:
         raise ValueError(f"C={C}: the segment backward takes C in "
-                         "{32, 64, 128}")
+                         f"{BWD_CHANNELS}")
     if w.shape != (3, 3, C, C):
         raise ValueError(f"w must be (3, 3, {C}, {C}), got {tuple(w.shape)}")
     if any(t.shape != (C,) for t in (a, b, mean, invstd)):
@@ -227,25 +259,27 @@ def _bwd_kernel():
         ws.argtypes = [ctypes.c_int] * 4
         ws.restype = ctypes.c_longlong
         fn = lib.convseg_backward
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_fn = (ws, fn)
     return _bwd_fn
 
 
-def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation):
-    """K2: the one-pass backward of the train segment (see module doc).
+def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation, act=True):
+    """K2 (C in {32, 64, 128}) and K9 (C = 256): the one-pass backward of
+    the train segment (see module doc).
 
     x, g: (N, H, W, C) bf16 or f32, contiguous, g in x's dtype; a, b, mean,
-    invstd: (C,) f32; w: (3, 3, C, C) HWIO. C in {32, 64, 128}. Returns
-    (dx in x.dtype, dw (3, 3, C, C) f32, vec (3, C) f32 = [S1, S2, dc])."""
-    global BWD_CALLS, BWD_LAUNCHES
+    invstd: (C,) f32; w: (3, 3, C, C) HWIO; act: the forward's ReLU.
+    Returns (dx in x.dtype, dw (3, 3, C, C) f32, vec (3, C) f32 = [S1, S2,
+    dc])."""
+    global BWD_CALLS, BWD_LAUNCHES, WIDE_BWD_LAUNCHES
     _check_bwd(x, g, a, b, mean, invstd, w, dilation)
     BWD_CALLS += 1
     if x.device.type == "cpu":
         return segment_bwd_reference(x, g, a, b, mean, invstd, w,
-                                     dilation=dilation)
+                                     dilation=dilation, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     N, H, W, C = x.shape
@@ -266,9 +300,11 @@ def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in vecs),
                 wT.data_ptr(), dx.data_ptr(), dw.data_ptr(), vec.data_ptr(),
-                work.data_ptr(), N, H, W, C, int(dilation),
+                work.data_ptr(), N, H, W, C, int(dilation), int(bool(act)),
                 int(x.dtype == torch.bfloat16), ctypes.byref(n), stream)
     BWD_LAUNCHES += n.value
+    if C > 128:
+        WIDE_BWD_LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"convseg_bwd kernel launch failed: cudaError {rc}")
     return dx, dw, vec
@@ -283,33 +319,80 @@ def fold_cotangents(dx, dw, vec, gamma, invstd):
             -0.5 * gamma * invstd * invstd * s2, dw, dc)
 
 
+def _segment_backward(ctx, g):
+    """K2/K9 + fold_cotangents from the saved (x, γ, β, mean, var, w): the
+    backward of both train-segment modes (convseg.py:718-724)."""
+    x, gamma, beta, mean, var, w = ctx.saved_tensors
+    a, b, invstd = segment_affine(gamma, beta, mean, var, ctx.eps)
+    dx, dw, vec = segment_bwd(x, g.to(x.dtype).contiguous(), a, b, mean,
+                              invstd, w, dilation=ctx.dilation, act=ctx.act)
+    return fold_cotangents(dx, dw, vec, gamma, invstd) + (None,) * 3
+
+
 class FusedSegment(torch.autograd.Function):
-    """Train-mode BN -> ReLU -> dilated 3x3 conv:
+    """Train-mode BN -> act -> dilated 3x3 conv (segment mode "1"):
 
-        y = conv_{3x3,d,SAME}(relu((x − mean)·rsqrt(var+eps)·γ + β)) + bias
+        y = conv_{3x3,d,SAME}(act((x − mean)·rsqrt(var+eps)·γ + β)) + bias
 
-    forward = K1 on the affine (a, b) of the batch statistics, backward =
-    K2 + fold_cotangents. mean and var come from bn_stats outside (shared by
-    a ResBlock's branches); their cotangents carry on through autograd."""
+    act the ReLU or the identity; forward = K1 on the affine (a, b) of the
+    batch statistics, backward = K2 (K9 at C = 256) + fold_cotangents. mean
+    and var come from bn_stats outside (shared by a ResBlock's branches);
+    their cotangents carry on through autograd."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, mean, var, w, bias, dilation, eps):
+    def forward(ctx, x, gamma, beta, mean, var, w, bias, dilation, eps, act):
         a, b, _ = segment_affine(gamma, beta, mean, var, eps)
         ctx.save_for_backward(x, gamma, beta, mean, var, w)
-        ctx.dilation, ctx.eps = dilation, eps
-        return bn_act_conv(x, a, b, w, bias, dilation=dilation)
+        ctx.dilation, ctx.eps, ctx.act = dilation, eps, act
+        return bn_act_conv(x, a, b, w, bias, dilation=dilation, act=act)
+
+    backward = staticmethod(_segment_backward)
+
+
+class FusedSegmentBwdOnly(torch.autograd.Function):
+    """K10, segment mode "2" (convseg.py:763-790, fused_segment_bwdonly):
+    the same function as FusedSegment with a plain forward, op for op as
+    the reference's (convseg.py:771-780): z = x·a + b in f32, act, cast to
+    x's dtype, a conv in x's dtype (cuDNN on the card), + bias cast to x's
+    dtype; and the backward of FusedSegment (K2, which recomputes z from
+    x). `BWDONLY_LAUNCHES` counts the K2 launches of this backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, mean, var, w, bias, dilation, eps, act):
+        a, b, _ = segment_affine(gamma, beta, mean, var, eps)
+        ctx.save_for_backward(x, gamma, beta, mean, var, w)
+        ctx.dilation, ctx.eps, ctx.act = dilation, eps, act
+        return bwdonly_forward(x, a, b, w, bias, dilation=dilation, act=act)
 
     @staticmethod
     def backward(ctx, g):
-        x, gamma, beta, mean, var, w = ctx.saved_tensors
-        a, b, invstd = segment_affine(gamma, beta, mean, var, ctx.eps)
-        dx, dw, vec = segment_bwd(x, g.to(x.dtype).contiguous(), a, b, mean,
-                                  invstd, w, dilation=ctx.dilation)
-        return fold_cotangents(dx, dw, vec, gamma, invstd) + (None,) * 2
+        global BWDONLY_LAUNCHES
+        before = BWD_LAUNCHES
+        out = _segment_backward(ctx, g)
+        BWDONLY_LAUNCHES += BWD_LAUNCHES - before
+        return out
 
 
-def fused_segment(x, gamma, beta, mean, var, w, bias, *, dilation, eps=1e-3):
+def bwdonly_forward(x, a, b, w, bias, *, dilation, act=True):
+    """K10's plain forward (convseg.py:771-780) on NHWC x: z =
+    act(f32(x)·a + b) cast to x's dtype, conv_{3x3,d,SAME} in x's dtype,
+    + bias cast to x's dtype. Returns NHWC in x's dtype."""
+    z = x.float() * a + b
+    if act:
+        z = torch.relu(z)
+    z = z.to(x.dtype).permute(0, 3, 1, 2)
+    wt = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    y = F.conv2d(z, wt, padding=dilation, dilation=dilation)
+    y = y + bias.to(x.dtype)[:, None, None]
+    return y.permute(0, 2, 3, 1)
+
+
+def fused_segment(x, gamma, beta, mean, var, w, bias, *, dilation, eps=1e-3,
+                  act=True, bwd_only=False):
     """x: (N, H, W, C) contiguous; gamma, beta, mean, var, bias: (C,) f32;
-    w: (3, 3, C, C) HWIO. Returns (N, H, W, C) in x.dtype."""
-    return FusedSegment.apply(x, gamma, beta, mean, var, w, bias, dilation,
-                              eps)
+    w: (3, 3, C, C) HWIO. Segment mode "1" (FusedSegment) or, with
+    bwd_only, "2" (FusedSegmentBwdOnly). Returns (N, H, W, C) in
+    x.dtype."""
+    fn = FusedSegmentBwdOnly if bwd_only else FusedSegment
+    return fn.apply(x, gamma, beta, mean, var, w, bias, dilation, eps, act)

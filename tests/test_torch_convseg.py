@@ -100,3 +100,40 @@ def test_routing_predicate_is_the_reference_eval_gate():
     assert not convseg.available(32, 256, 256)   # K9 wide tier: opt-in there
     assert not convseg.available(64, 32, 64)     # C != Cout
     assert not convseg.available(2, 32, 32)      # (W*C) % 128 != 0
+
+
+# the model's segment levels: (C, the patch's divisor at that level)
+LEVELS = ((32, 1), (64, 2), (128, 4), (256, 8), (512, 16), (1024, 32))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("bwd", [True, False], ids=["train", "eval"])
+@pytest.mark.parametrize("P", [64, 256, 512, 1024])
+def test_gate_admits_the_reference_channel_set(P, bwd, wide, monkeypatch):
+    """The (C, W) pairs the gate admits at each patch's levels are the
+    reference's pallas_available with RESUNETA_CONVSEG_{BWD,FWD}_WIDE set
+    as `wide` says, its TPU-backend and VMEM-plan checks taken out: the
+    narrow tier C in {32, 64, 128}; the wide one adds C = 256 for training
+    and C = 256, 512 for eval; C = 1024 never."""
+    monkeypatch.setattr(jconvseg.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jconvseg, "_plan_tile", lambda *a, **k: 8)
+    monkeypatch.setenv("RESUNETA_CONVSEG_BWD_WIDE" if bwd else
+                       "RESUNETA_CONVSEG_FWD_WIDE", "1" if wide else "0")
+    admitted = [C for C, k in LEVELS
+                if convseg.available(P // k, C, C, bwd=bwd, wide=wide)]
+    assert admitted == [C for C, k in LEVELS if jconvseg.pallas_available(
+        P // k, P // k, C, C, 1, bwd=bwd)]
+    assert admitted == [32, 64, 128] + ([256] if wide else []) + \
+        ([512] if wide and not bwd else [])
+
+
+def test_wide_gate_runs_k9_where_the_reference_has_no_plan():
+    """Without the plan check the routes part at 1024 px: the reference's
+    planner finds no VMEM plan for the C = 256 train segments at 128^2 and
+    runs XLA's conv there; the port's gate sends them to K1 + K9 (the same
+    function). At 256 and 512 px both route them to the wide kernels."""
+    for d in (1, 3, 15):
+        assert jconvseg._plan_tile(128, 128, 256, d, bwd=True) is None
+        for S in (32, 64):
+            assert jconvseg._plan_tile(S, S, 256, d, bwd=True) is not None
+    assert convseg.available(128, 256, 256, wide=True)

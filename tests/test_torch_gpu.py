@@ -1,7 +1,8 @@
-"""Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K8)
-against their plain versions, the wrappers raising on what their kernels
-do not take, the 64 px model and train step on the card against the CPU
-plain path, and one 512 px train step's kernel launches. They skip
+"""Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K9)
+against their plain versions, the mode-"2" segment (K10), the wrappers
+raising on what their kernels do not take, the 64 px model and train step
+on the card against the CPU plain path (in the default routing and in each
+opt-in mode), and one 512 px train step's kernel launches. They skip
 without a card. This file imports no JAX, so it runs where only PyTorch
 is installed, without the JAX-importing tests/conftest.py:
 
@@ -105,27 +106,108 @@ def test_k2_matches_plain(cuda, N, H, W, C, d, dtype):
     in f32 within 1e-4 of its largest magnitude; in bf16 a one-ulp flip of
     the final rounding (2^-7 relative). dW and the sums within 1e-4 of
     their largest magnitude."""
-    x, a, b, w, _ = _inputs(N, H, W, C, C + d, cuda)
-    rng = np.random.default_rng(d)
-    g = torch.from_numpy(rng.standard_normal((N, H, W, C)).astype(
-        np.float32)).to(cuda, dtype)
-    x = x.to(dtype)
-    mean = torch.from_numpy(rng.standard_normal(C).astype(np.float32) * 0.1
-                            ).to(cuda)
-    invstd = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)
-                              ).to(cuda)
+    args = _k2_args(N, H, W, C, d, dtype, cuda)
     launches = convseg.BWD_LAUNCHES
-    got = convseg.segment_bwd(x, g, a, b, mean, invstd, w, dilation=d)
+    got = convseg.segment_bwd(*args, dilation=d)
     torch.cuda.synchronize()
     assert convseg.BWD_LAUNCHES == launches + 4     # dgrad, wgrad, 2 sums
-    want = convseg.segment_bwd_reference(x, g, a, b, mean, invstd, w,
-                                         dilation=d)
+    want = convseg.segment_bwd_reference(*args, dilation=d)
     assert got[0].dtype == dtype and got[1].shape == (3, 3, C, C)
+    _k2_close(got, want, dtype)
+
+
+def _k2_args(N, H, W, C, d, dtype, device):
+    x, a, b, w, _ = _inputs(N, H, W, C, C + d, device)
+    rng = np.random.default_rng(d)
+    g = torch.from_numpy(rng.standard_normal((N, H, W, C)).astype(
+        np.float32)).to(device, dtype)
+    mean = torch.from_numpy(rng.standard_normal(C).astype(np.float32) * 0.1
+                            ).to(device)
+    invstd = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)
+                              ).to(device)
+    return x.to(dtype), g, a, b, mean, invstd, w
+
+
+def _k2_close(got, want, dtype):
+    """dx: 1e-4 of its largest magnitude, plus one bf16 ulp (2^-7
+    relative) of a bf16 dx; dW and the sums: 1e-4 of their largest
+    magnitude (only the order of the f32 sums differs)."""
     for k, (gt, wt) in enumerate(zip(got, want)):
         gt, wt = gt.float(), wt.float()
         scale = wt.abs().max().item()
         rtol = 2 ** -7 if (k == 0 and dtype == torch.bfloat16) else 0
         torch.testing.assert_close(gt, wt, rtol=rtol, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("N,H,W,d", [(2, 32, 32, 1), (1, 64, 64, 3),
+                                     (1, 128, 128, 15)])
+def test_k9_matches_plain(cuda, N, H, W, d, act, dtype):
+    """K9, the C = 256 backward, at the wide tier's three train planes
+    (32², 64², 128²) with and without the ReLU, against the plain version
+    at _k2_close's limits: 4 launches a call, counted as K2's and as the
+    wide tier's."""
+    args = _k2_args(N, H, W, 256, d, dtype, cuda)
+    launches, wide = convseg.BWD_LAUNCHES, convseg.WIDE_BWD_LAUNCHES
+    got = convseg.segment_bwd(*args, dilation=d, act=act)
+    torch.cuda.synchronize()
+    assert convseg.BWD_LAUNCHES == launches + 4
+    assert convseg.WIDE_BWD_LAUNCHES == wide + 4
+    assert got[0].dtype == dtype and got[1].shape == (3, 3, 256, 256)
+    want = convseg.segment_bwd_reference(*args, dilation=d, act=act)
+    _k2_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,d", [(32, 1), (64, 3), (128, 15)])
+def test_k2_without_act_matches_plain(cuda, C, d, dtype):
+    """act = False (the dense tail's head segments): no ReLU mask, zb =
+    bf16(z_pre); at _k2_close's limits."""
+    args = _k2_args(2, 32, 32, C, d, dtype, cuda)
+    wide = convseg.WIDE_BWD_LAUNCHES
+    got = convseg.segment_bwd(*args, dilation=d, act=False)
+    torch.cuda.synchronize()
+    assert convseg.WIDE_BWD_LAUNCHES == wide
+    want = convseg.segment_bwd_reference(*args, dilation=d, act=False)
+    _k2_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,d", [(32, 15), (128, 1), (256, 3)])
+def test_bwdonly_segment_matches_plain(cuda, C, d):
+    """K10, the mode-"2" segment, f32, TF32 off, through autograd on the
+    card (a cuDNN forward, K2/K9 backward) against its plain version on the
+    same card inputs (the same forward; K2's plain version and
+    fold_cotangents): y and the seven gradients at _k2_close's f32
+    limits. (Against the CPU, a = γ·rsqrt(var + eps) differs in its last
+    bit on some channels, CUDA's rsqrt not being correctly rounded, and
+    flips bf16 roundings of z: the step tests hold that.)"""
+    x, _, _, w, bias = _inputs(2, 32, 32, C, C + d, cuda)
+    rng = np.random.default_rng(C + d)
+    gamma, beta, mean = (torch.from_numpy(rng.standard_normal(C).astype(
+        np.float32) * s + o).to(cuda) for s, o in ((0.3, 1.0), (0.2, 0.0),
+                                                   (0.1, 0.0)))
+    var = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)
+                           ).to(cuda)
+    cot = torch.from_numpy(rng.standard_normal((2, 32, 32, C)).astype(
+        np.float32)).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in
+              (x, gamma, beta, mean, var, w, bias)]
+    before = convseg.BWDONLY_LAUNCHES
+    with convseg.no_tf32():
+        y = convseg.fused_segment(*leaves, dilation=d, bwd_only=True)
+        got = [y] + list(torch.autograd.grad(y, leaves, cot))
+        torch.cuda.synchronize()
+        assert convseg.BWDONLY_LAUNCHES == before + 4
+        a, b, invstd = convseg.segment_affine(gamma, beta, mean, var)
+        want = [convseg.bwdonly_forward(x, a, b, w, bias, dilation=d),
+                *convseg.fold_cotangents(*convseg.segment_bwd_reference(
+                    x, cot, a, b, mean, invstd, w, dilation=d), gamma,
+                    invstd)]
+    _k2_close([t.detach() for t in got], want, torch.float32)
 
 
 # ---------------------------------------------------- K5 and K6, labels
@@ -252,8 +334,8 @@ def test_new_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                           # g's dtype
         convseg.segment_bwd(x, x.to(torch.bfloat16), a, b, a, b, w,
                             dilation=1)
-    x, a, b, w, _ = _inputs(1, 8, 8, 256, 0, cuda)
-    with pytest.raises(ValueError):                           # C = 256
+    x, a, b, w, _ = _inputs(1, 8, 8, 512, 0, cuda)
+    with pytest.raises(ValueError):                           # C = 512
         convseg.segment_bwd(x, x, a, b, a, b, w, dilation=1)
 
 
@@ -276,7 +358,43 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
     got = chip_smoke.step_card_vs_cpu()
     assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K3": 12,
                                "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 3,
-                               "K5/K7": 10, "K6": 1}
+                               "K5/K7": 10, "K6": 1, "K9": 0, "K10": 0}
+    assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
+
+
+# the opt-in modes' 64 px steps (ResUnetA arguments) and their launches
+# a step: bwd_wide adds the 12 RB(256) segments to K1 and K2 (K9); segment
+# mode "2" runs no K1 and the NHWC routing (no K3, K4); tail mode "1" adds
+# the five head segments
+MODE_STEPS = {
+    "bwd_wide": ({"bwd_wide": True},
+                 {"K1": 56, "K2": 4 * 56, "K3": 12, "K3_bwd": 3 * 12,
+                  "K4": 1, "K4_bwd": 3, "K5/K7": 10, "K6": 1, "K9": 4 * 12,
+                  "K10": 0}),
+    "segment_mode_2": ({"segment_mode": "2"},
+                       {"K1": 0, "K2": 4 * 44, "K3": 0, "K3_bwd": 0,
+                        "K4": 0, "K4_bwd": 0, "K5/K7": 10, "K6": 1,
+                        "K9": 0, "K10": 4 * 44}),
+    "dense_tail_1": ({"dense_tail": "1"},
+                     {"K1": 49, "K2": 4 * 49, "K3": 12, "K3_bwd": 3 * 12,
+                      "K4": 1, "K4_bwd": 3, "K5/K7": 10, "K6": 1, "K9": 0,
+                      "K10": 0}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(MODE_STEPS))
+def test_mode_train_step_on_card_matches_cpu_plain_path(cuda, mode):
+    """Each opt-in mode's 64 px, bs 2, f32 step (dense_trunk=True, which
+    segment mode "2" turns off), card against the CPU plain path, through
+    chip_smoke.step_card_vs_cpu at chip_smoke.STEP_TOL; the launches of
+    MODE_STEPS."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    modes, launches = MODE_STEPS[mode]
+    got = chip_smoke.step_card_vs_cpu(threads=False, **modes)
+    assert got["launches"] == launches
     assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
 
 

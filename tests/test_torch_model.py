@@ -59,15 +59,12 @@ def flax_variables(module, x, seed):
     return random_variables(flax.core.unfreeze(shapes), seed)
 
 
-@pytest.fixture
-def jax_k1(monkeypatch):
-    """Route the JAX eval segments through the Pallas kernel (interpret
-    mode) under the port's predicate; count the segments routed."""
+def _jax_k1(monkeypatch, wide):
     calls = []
     orig = jconvseg.bn_act_conv_pallas
 
     def available(H, W, C, Cout, d, bwd=True):
-        return (convseg.available(W, C, Cout)
+        return (convseg.available(W, C, Cout, bwd=bwd, wide=wide)
                 and jconvseg._plan_tile(H, W, C, d, bwd=bwd) is not None)
 
     def counted(*args, **kw):
@@ -77,6 +74,21 @@ def jax_k1(monkeypatch):
     monkeypatch.setattr(jconvseg, "pallas_available", available)
     monkeypatch.setattr(jconvseg, "bn_act_conv_pallas", counted)
     return calls
+
+
+@pytest.fixture
+def jax_k1(monkeypatch):
+    """Route the JAX eval segments through the Pallas kernel (interpret
+    mode) under the port's predicate; count the segments routed."""
+    return _jax_k1(monkeypatch, wide=False)
+
+
+@pytest.fixture
+def jax_k1_wide(monkeypatch):
+    """The same with the wide tier on, as RESUNETA_CONVSEG_FWD_WIDE=1
+    turns it on in the reference (the port's fwd_wide)."""
+    monkeypatch.setenv("RESUNETA_CONVSEG_FWD_WIDE", "1")
+    return _jax_k1(monkeypatch, wide=True)
 
 
 def nchw(x):
@@ -185,6 +197,33 @@ def test_resuneta_eval_forward_matches_flax(multitask, jax_k1):
     assert decided.mean() >= 0.9
     same = np.argmax(got["seg"].numpy(), -1) == np.argmax(ref, -1)
     assert same[decided].mean() >= 0.999
+
+
+def test_resuneta_eval_forward_wide_matches_flax(jax_k1_wide):
+    """fwd_wide: the eval segments of RB(256) and RB(512) through K1 too, 60
+    a forward in the port. At 64 px the reference's planner admits RB(256)
+    at 8x8 (56 Pallas segments) but finds no plan for RB(512) at 4x4 and
+    runs XLA's conv there, in f32; the port, without the plan check, runs
+    K1 (z and taps in bf16). Every head's probabilities within the 5e-3 of
+    the default forward's test."""
+    x = np.random.default_rng(6).uniform(0, 1, (1, 64, 64, 3)).astype(
+        np.float32)
+    jmod = jm.ResUnetA(5, img_size=64)
+    variables = flax_variables(jmod, [jnp.asarray(x)], seed=22)
+    jax_k1_wide.clear()
+    want = jax.jit(lambda v, x: jmod.apply(v, x, train=False))(
+        variables, jnp.asarray(x))
+    assert len(jax_k1_wide) == 56
+
+    tmod = load(tm.ResUnetA(5, img_size=64, device="cpu", fwd_wide=True),
+                variables)
+    calls = convseg.CALLS
+    with torch.inference_mode():
+        got = tmod(torch.from_numpy(x))
+    assert convseg.CALLS - calls == 60
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=0, atol=5e-3, err_msg=k)
 
 
 # ------------------------------------------------------------- conversion

@@ -134,3 +134,106 @@ def test_fused_segment_grads(d):
             scale = max(float(np.abs(other).max()), 1e-3)
             np.testing.assert_allclose(gt, other, rtol=0.06,
                                        atol=0.06 * scale, err_msg=name)
+
+
+# ------------------------------------------- the opt-in modes' segments
+
+def _vjp(fn, primals, cot):
+    """(y, the cotangents of every primal) of a JAX function, as numpy."""
+    y, vjp = jax.vjp(fn, *map(jnp.asarray, primals))
+    return [np.asarray(y)] + [np.asarray(t) for t in vjp(jnp.asarray(cot))]
+
+
+def _torch_grads(fn, primals, cot):
+    """(y, the gradient of every primal) of the port's function."""
+    args = [torch.from_numpy(v).requires_grad_() for v in primals]
+    y = fn(*args)
+    grads = torch.autograd.grad(y, args, torch.from_numpy(cot))
+    return [y.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def _assert_close(got, want, names, rtol=1e-5, atol_of_max=1e-4):
+    """Each output within `atol_of_max` of its largest magnitude plus
+    `rtol` relative (the K2 interpret test's limits)."""
+    for name, gt, wt in zip(names, got, want):
+        assert gt.shape == wt.shape, name
+        scale = max(float(np.abs(wt).max()), 1e-6)
+        np.testing.assert_allclose(gt, wt, rtol=rtol,
+                                   atol=atol_of_max * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("N,H,W,d", [(1, 16, 16, 3), (1, 32, 32, 1)])
+def test_wide_fused_segment_matches_pallas_interpret(N, H, W, d):
+    """FusedSegment at C = 256 (K1 + K9's plain versions) against jax.vjp
+    of the reference's fused_segment with its wide tier's kernels in
+    interpret mode, at the geometries that tier plans
+    (tests/test_pallas_convseg.py:76-85). Both sides round z and the taps
+    to bf16 and sum in f32: y and the seven gradients within 1e-4 of their
+    largest magnitude plus 1e-5 relative (the K2 interpret test's limits;
+    the order of the sums is all that differs)."""
+    C = 256
+    x, cot, gamma, beta, mean, var, w, bias = _inputs(N, H, W, C, 50 + d)
+    primals = (x, gamma, beta, mean, var, w, bias)
+    want = _vjp(lambda *p: jconvseg.fused_segment(d, 1e-3, True, True, *p),
+                primals, cot)
+    calls = convseg.BWD_CALLS
+    got = _torch_grads(lambda *p: convseg.fused_segment(*p, dilation=d),
+                       primals, cot)
+    assert convseg.BWD_CALLS == calls + 1
+    _assert_close(got, want, ["y"] + NAMES)
+
+
+def _identity(C):
+    """The dense tail's identity affine, as the reference builds it
+    (resuneta.py:129-131): γ = 1, β = 0, mean = 0, var = 1 − 1e-3 in f32,
+    so a = rsqrt(var + 1e-3) = 1 and b = 0."""
+    ones = np.ones(C, np.float32)
+    zeros = np.zeros(C, np.float32)
+    return ones, zeros, zeros, ones - np.float32(1e-3)
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_segment_without_act_matches_pallas_interpret(d):
+    """act = False on the identity affine (the tail's seg1, Conv_6 and
+    Conv_8 in mode "1"): the port's FusedSegment (K1 and K2 plain, no ReLU
+    mask, zb = bf16(z_pre)) against jax.vjp of the reference's
+    fused_segment_dense(W, d, 1e-3, False, True, ...) on the dense view;
+    y and the seven gradients at the limits above."""
+    N, H, W, C = 2, 32, 32, 32
+    x, cot, _, _, _, _, w, bias = _inputs(N, H, W, C, 70 + d)
+    gamma, beta, mean, var = _identity(C)
+    primals = (x, gamma, beta, mean, var, w, bias)
+
+    def ref(x, *p):
+        y = jconvseg.fused_segment_dense(W, d, 1e-3, False, True,
+                                         x.reshape(N, H, W * C), *p)
+        return y.reshape(N, H, W, C)
+
+    want = _vjp(ref, primals, cot)
+    got = _torch_grads(lambda *p: convseg.fused_segment(
+        *p, dilation=d, act=False), primals, cot)
+    np.testing.assert_array_equal(
+        torch.rsqrt(torch.from_numpy(var) + 1e-3).numpy(), 1.0)
+    _assert_close(got, want, ["y"] + NAMES)
+
+
+@pytest.mark.parametrize("C,d", [(32, 1), (32, 3), (64, 1), (64, 3)])
+def test_bwdonly_segment_matches_the_reference(C, d):
+    """K10, segment mode "2": FusedSegmentBwdOnly (a plain f32 forward, K2's
+    plain version backward) against jax.vjp of the reference's
+    fused_segment_bwdonly(d, 1e-3, True, True, ...) (its forward in XLA,
+    its K2 in interpret mode). y within 1e-5 of its largest magnitude (f32
+    convolutions; z = x·a + b rounded once there, twice here), the seven
+    gradients at the limits above."""
+    N, H, W = 2, 16, 16
+    x, cot, gamma, beta, mean, var, w, bias = _inputs(N, H, W, C, 90 + d)
+    primals = (x, gamma, beta, mean, var, w, bias)
+    want = _vjp(lambda *p: jconvseg.fused_segment_bwdonly(
+        d, 1e-3, True, True, *p), primals, cot)
+    calls, bwd_calls = convseg.CALLS, convseg.BWD_CALLS
+    got = _torch_grads(lambda *p: convseg.fused_segment(
+        *p, dilation=d, bwd_only=True), primals, cot)
+    # a plain forward (no K1 call), K2's backward
+    assert (convseg.CALLS, convseg.BWD_CALLS) == (calls, bwd_calls + 1)
+    _assert_close(got[:1], want[:1], ["y"], rtol=0, atol_of_max=1e-5)
+    _assert_close(got[1:], want[1:], NAMES)

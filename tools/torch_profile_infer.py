@@ -5,6 +5,11 @@ on the card: torch.profiler over warm forwards of ResUnet-a d6 (5 classes,
 make_seg_ids_fn, summed by device kernel.
 
     python3 tools/torch_profile_infer.py [--batch 32] [--iters 5]
+                                         [--fwd-wide]
+
+--fwd-wide is ResUnetA's fwd_wide (the reference's
+RESUNETA_CONVSEG_FWD_WIDE=1): the C = 256 and 512 eval segments through
+K1 too; the other mode arguments route train mode only.
 
 Prints one JSON line: the card (nvidia-smi name and power limit), the host
 wall time per forward, the device busy time per forward (sum of kernel
@@ -31,6 +36,7 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--fwd-wide", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -42,7 +48,8 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     model = ResUnetA(5, img_size=256, multitasking=True, dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(0))
+                     generator=torch.Generator().manual_seed(0),
+                     fwd_wide=args.fwd_wide)
     fn = make_seg_ids_fn(model, norm_type=1)
     x = np.random.default_rng(0).integers(
         0, 256, (args.batch, 256, 256, 3), dtype=np.uint8)
@@ -75,6 +82,7 @@ def main(argv=None):
         and "convseg_kernel" not in k)
     print(json.dumps({
         "card": smi, "batch": args.batch, "iters": args.iters,
+        "fwd_wide": args.fwd_wide,
         "wall_ms_per_forward": wall_ms, "device_busy_ms_per_forward": busy,
         "busy_share": busy / wall_ms,
         "k1_ms_per_forward": k1, "other_conv_ms_per_forward": conv,

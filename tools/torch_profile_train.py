@@ -8,6 +8,9 @@ summed by device kernel.
     python3 tools/torch_profile_train.py [--patch 256] [--batch 16]
                                          [--iters 5] [--routing dense|nhwc]
                                          [--cudnn-benchmark]
+                                         [--segment-mode 0|1|2]
+                                         [--bwd-wide] [--fwd-wide]
+                                         [--dense-tail 0|1|2]
 
 --patch is the patch side (a multiple of 32; bench.py's rows are 256 px
 at batch 16, 512 px at batch 8 and 1024 px at batch 2). --routing picks
@@ -16,12 +19,15 @@ convs through K3 and K4) or NHWC (dense_trunk=False). --cudnn-benchmark
 sets torch.backends.cudnn.benchmark for this process, so cuDNN times its
 algorithms for each convolution shape at first use instead of taking its
 heuristic's choice (the train step leaves the switch as the caller set
-it).
+it). --segment-mode, --bwd-wide, --fwd-wide and --dense-tail are
+ResUnetA's segment_mode, bwd_wide, fwd_wide and dense_tail: the
+reference's opt-in train modes, off by default (models/resuneta.py).
 Prints one JSON line: the card (nvidia-smi name and power limit), the
-routing, the host wall time per step (without the profiler, and under
-it), the device busy time per step (sum of kernel times, under the
-profiler), the busy share, the time of each of the port's kernels (K1
-convseg_kernel, K2 dgrad/wgrad/reduce, K3 densemm_*, K4 poolconv_*, the
+routing and modes, the host wall time per step (without the profiler,
+and under it), the peak device memory, the device busy time per step (sum
+of kernel times, under the profiler), the busy share, the time of each of
+the port's kernels (K1 convseg_kernel, K2 dgrad/wgrad at C <= 128, K9
+dgrad/wgrad at C = 256, their reduce_rows, K3 densemm_*, K4 poolconv_*, the
 EDT's jfa_pass and its seeds and distances (K5 and K7 alike), and
 canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
 GEMMs, the top kernels by total device time, the operators by device
@@ -43,16 +49,20 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _k2(name):
-    # K3's and K4's kernels carry K2's names after their own prefix
-    return lambda k: name in k and "densemm" not in k and "poolconv" not in k
+def _k2(name, wide):
+    # K3's and K4's kernels carry K2's names after their own prefix; K9 is
+    # K2's template at C = 256
+    return lambda k: name in k and "densemm" not in k and \
+        "poolconv" not in k and (", 256>" in k) == wide
 
 
 GROUPS = {
     "K1 convseg_kernel": lambda k: "convseg_kernel" in k,
-    "K2 dgrad_kernel": _k2("dgrad_kernel"),
-    "K2 wgrad_kernel": _k2("wgrad_kernel"),
-    "K2 reduce_rows": lambda k: "reduce_rows" in k,
+    "K2 dgrad_kernel": _k2("dgrad_kernel", False),
+    "K2 wgrad_kernel": _k2("wgrad_kernel", False),
+    "K9 dgrad_kernel": _k2("dgrad_kernel", True),
+    "K9 wgrad_kernel": _k2("wgrad_kernel", True),
+    "K2/K9 reduce_rows": lambda k: "reduce_rows" in k,
     "K3 densemm_fwd_kernel": lambda k: "densemm_fwd_kernel" in k,
     "K3 densemm_dgrad_kernel": lambda k: "densemm_dgrad_kernel" in k,
     "K3 densemm_wgrad_kernel": lambda k: "densemm_wgrad_kernel" in k,
@@ -86,6 +96,12 @@ def main(argv=None):
     parser.add_argument("--cudnn-benchmark", action="store_true",
                         help="let cuDNN time its algorithms per shape "
                              "(torch.backends.cudnn.benchmark)")
+    parser.add_argument("--segment-mode", choices=("0", "1", "2"),
+                        default="1")
+    parser.add_argument("--bwd-wide", action="store_true")
+    parser.add_argument("--fwd-wide", action="store_true")
+    parser.add_argument("--dense-tail", choices=("0", "1", "2"),
+                        default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -103,7 +119,9 @@ def main(argv=None):
     P = args.patch
     model = ResUnetA(5, img_size=P, multitasking=True, dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(0),
-                     dense_trunk=None if args.routing == "dense" else False)
+                     dense_trunk=None if args.routing == "dense" else False,
+                     segment_mode=args.segment_mode, fwd_wide=args.fwd_wide,
+                     bwd_wide=args.bwd_wide, dense_tail=args.dense_tail)
     state = create_train_state(model, "adam", 1e-4)
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in ("seg", "bound", "dist", "color")},
@@ -115,9 +133,12 @@ def main(argv=None):
                                     dtype=np.uint8),
            "label_ids": ids.astype(np.uint8),
            "aug": rng.integers(0, 5, args.batch)}
-    for _ in range(3):
+    for i in range(3):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
         state, row = step(state, raw)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     # the wall time without the profiler, whose host overhead is large here
     t0 = time.time()
     for _ in range(args.iters):
@@ -161,6 +182,12 @@ def main(argv=None):
     print(json.dumps({
         "card": smi, "routing": args.routing, "patch": P,
         "cudnn_benchmark": args.cudnn_benchmark,
+        "modes": {"segment_mode": args.segment_mode,
+                  "bwd_wide": args.bwd_wide, "fwd_wide": args.fwd_wide,
+                  "dense_tail": args.dense_tail},
+        "dense_trunk_on": model.uses_dense_trunk(P, P),
+        "tail_mode": model.tail_mode(P, P),
+        "max_memory_allocated_bytes": peak,
         "batch": args.batch,
         "iters": args.iters,
         "wall_ms_per_step": wall_ms,
