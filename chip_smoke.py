@@ -33,7 +33,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             bias, no BN sums) of the same precomputed bf16 z and g
             (library_ms). k10: the segment of mode "2" (a cuDNN forward,
             the K2 backward) at the 11 shapes, through autograd, against
-            its plain version.
+            its plain version. Each k2 row names the design that took
+            it: "tma_wgmma" (K2's TMA-fed wgmma kernels, C <= 128) or
+            "pr5" (K9's, C = 256).
 5. k3, k4 - K3 (the 1x1 conv over concat parts) and K4 (max pool -> 1x1
             conv), forward and backward, against their plain versions at
             the 12 and 3 shapes of the dense-trunk train step (batch 16,
@@ -474,6 +476,7 @@ def phase_k2(convseg):
         row = {"phase": "k2", "N": N, "H": S, "W": S, "C": C, "d": d,
                "act": act, "path": path,
                "kernel": "K9" if C > 128 else "K2",
+               "design": "pr5" if C > 128 else "tma_wgmma",
                "max_abs_err": max_err,
                "tolerance": TOLERANCE,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,

@@ -14,7 +14,10 @@ statistics' affine.
 K2 is the one-pass backward of the train segment (convseg.py:387-500,
 _bwd_kernel): from x and the output cotangent g it recomputes z and gives
 dx, the nine weight-gradient taps and the per-channel sums S1, S2, dc, which
-`fold_cotangents` turns into the seven cotangents (convseg.py:699-715).
+`fold_cotangents` turns into the seven cotangents (convseg.py:699-715). On
+the card it is two TMA-fed wgmma kernels (dgrad, whose epilogue also writes
+bf16 z to a workspace, then wgrad) and two fixed-order sums; TMA reads
+bf16, so with f32 inputs the wrapper puts bf16(g) past the workspace.
 K9 is the same backward at C = 256 (the reference's opt-in wide tier,
 RESUNETA_CONVSEG_BWD_WIDE=1), one CUDA source with K2. Both take act =
 False too (z = x*a + b, no ReLU mask), as _bwd_kernel's `act` does.
@@ -284,17 +287,26 @@ def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation, act=True):
         raise ValueError(f"no kernel for device {x.device}")
     N, H, W, C = x.shape
     vecs = [t.float().contiguous() for t in (a, b, mean, invstd)]
-    # wT[t, o, c] = w[t, c, o]: the dgrad GEMM's B operand, row-major
-    wT = w.to(torch.bfloat16).permute(0, 1, 3, 2).contiguous()
+    # wT[t, o, c] = w[t, c, o]: the dgrad GEMM's B operand, row-major (one
+    # copy kernel casts and transposes)
+    wT = torch.empty((3, 3, C, C), dtype=torch.bfloat16, device=x.device)
+    wT.copy_(w.permute(0, 1, 3, 2))
     dx = torch.empty_like(x)
     dw = torch.empty((3, 3, C, C), dtype=torch.float32, device=x.device)
     vec = torch.empty((3, C), dtype=torch.float32, device=x.device)
     ws_floats, fn = _bwd_kernel()
-    work = torch.empty(ws_floats(N, H, W, C), dtype=torch.float32,
-                       device=x.device)
-    for t in (x, g, wT, dx):
+    ws = ws_floats(N, H, W, C)
+    # K2 reads g through TMA in bf16: with f32 inputs bf16(g) goes past the
+    # kernel's own workspace (zb, the partials)
+    gb_floats = N * H * W * C // 2 if (C <= 128 and
+                                       x.dtype == torch.float32) else 0
+    work = torch.empty(ws + gb_floats, dtype=torch.float32, device=x.device)
+    if gb_floats:
+        work[ws:].view(torch.bfloat16).view(g.shape).copy_(g)
+    for t in (x, g, wT, dx, work):
         if t.data_ptr() % 16:
-            raise ValueError("x, g, w and dx must be 16-byte aligned")
+            raise ValueError("x, g, w, dx and the workspace must be 16-byte "
+                             "aligned")
     n = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -176,6 +176,56 @@ def test_k2_without_act_matches_plain(cuda, C, d, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [32, 64, 128])
+def test_k2_is_deterministic(cuda, C, dtype):
+    """Two calls on the same inputs give bit-identical dx, dW and [S1, S2,
+    dc]: no atomics, every sum in a fixed order."""
+    args = _k2_args(2, 24, 40, C, 3, dtype, cuda)
+    first = convseg.segment_bwd(*args, dilation=3)
+    second = convseg.segment_bwd(*args, dilation=3)
+    torch.cuda.synchronize()
+    for f, s in zip(first, second):
+        assert torch.equal(f, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("N,H,W,C,d", [(3, 5, 7, 32, 1),      # H*W < a tile
+                                       (1, 3, 130, 64, 2),    # W > 128
+                                       (2, 9, 33, 128, 4),    # ragged tiles
+                                       (2, 8, 8, 32, 8),      # d >= H
+                                       (1, 12, 20, 64, 31),   # d >= H, W
+                                       (1, 16, 16, 128, 16)])
+def test_k2_edge_shapes_match_plain(cuda, N, H, W, C, d, act, dtype):
+    """Pixel counts that are no multiple of the 128-pixel tile, an image
+    smaller than one tile, and dilations past the image (only the centre
+    tap sees data) against the plain version at _k2_close's limits; still
+    4 launches a call."""
+    args = _k2_args(N, H, W, C, d, dtype, cuda)
+    launches = convseg.BWD_LAUNCHES
+    got = convseg.segment_bwd(*args, dilation=d, act=act)
+    torch.cuda.synchronize()
+    assert convseg.BWD_LAUNCHES == launches + 4
+    want = convseg.segment_bwd_reference(*args, dilation=d, act=act)
+    _k2_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,S,d", [(32, 256, 31), (64, 128, 15),
+                                   (128, 64, 3)])
+def test_k2_main_path_shapes_match_plain(cuda, C, S, d):
+    """One shape of each level of the 256 px train step, at batch 2, bf16,
+    against the plain version at _k2_close's limits."""
+    args = _k2_args(2, S, S, C, d, torch.bfloat16, cuda)
+    got = convseg.segment_bwd(*args, dilation=d)
+    torch.cuda.synchronize()
+    want = convseg.segment_bwd_reference(*args, dilation=d)
+    _k2_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("C,d", [(32, 15), (128, 1), (256, 3)])
 def test_bwdonly_segment_matches_plain(cuda, C, d):
     """K10, the mode-"2" segment, f32, TF32 off, through autograd on the
