@@ -15,7 +15,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             of the bwd_wide steps at 256, 512 and 1024 px); times the
             kernel, the plain version and one cuDNN bf16 conv of the same z
             (library_ms, a yardstick the port never calls) beside the
-            least time the card could take (bound_ms).
+            least time the card could take (bound_ms). Each k1 row names
+            the design that took it (convseg.k1_design): "tma_wgmma" (the
+            TMA-fed wgmma kernel, C == Cout <= 256) or "pr1" (the first,
+            WMMA design, convseg_kernel: C = 512).
 3. slice, slice_wide - ISPRS whole-scene inference of ResUnet-a d6 at full
             width (5 classes, 256 px, multitask, bf16, seeded random
             weights): a 2048x2048 uint8 scene through
@@ -303,7 +306,8 @@ def phase_k1(convseg, F):
             x, a, b, w, bias, dilation=d), reps=3, warmup=1)
         bound_ms, bound_by, flops, nbytes = k1_bound(N, S, S, C)
         row = {"phase": "k1", "N": N, "H": S, "W": S, "C": C, "d": d,
-               "on_path": on_path, "path": path, "max_abs_err": max_err,
+               "on_path": on_path, "path": path,
+               "design": convseg.k1_design(C, C), "max_abs_err": max_err,
                "tolerance": f"|err| <= {K1_ATOL} + {K1_RTOL}*|plain|",
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1299,6 +1303,8 @@ def main():
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"],
         "per": "one 32-patch forward: the 44 launches at their shapes",
+        "designs": {d: sorted({r["C"] for r in rows if r["design"] == d})
+                    for d in sorted({r["design"] for r in rows})},
     }, {
         "name": "K2 segment_bwd (one-pass backward of the fused segment: "
                 "dgrad, wgrad, BN sums)",

@@ -102,6 +102,15 @@ using namespace nvcuda;
 
 namespace {
 
+using sm90::act_map;
+using sm90::align1024;
+using sm90::consumers_sync;
+using sm90::Geo;
+using sm90::make_geo;
+using sm90::ring_acquire;
+using sm90::ring_init;
+using sm90::tile_origin;
+
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BM = 128;       // dgrad: output pixels per block
 constexpr int BK = 32;        // dgrad: channels of g per K step
@@ -590,46 +599,6 @@ struct WgShape {
   static_assert(REGION % 1024 == 0, "swizzle atoms stay aligned");
 };
 
-// The pixel tiling of an image for tiles of `pix` pixels: BW = the power
-// of two >= W up to pix, BH = pix / BW.
-struct Geo {
-  int N, H, W, bw_log2, bh, tiles_w, tiles_h;
-  long long tiles;
-};
-
-Geo make_geo(int N, int H, int W, int pix) {
-  Geo g;
-  g.N = N;
-  g.H = H;
-  g.W = W;
-  g.bw_log2 = 0;
-  while ((1 << g.bw_log2) < W && (2 << g.bw_log2) <= pix) ++g.bw_log2;
-  g.bh = pix >> g.bw_log2;
-  g.tiles_w = (W + (1 << g.bw_log2) - 1) >> g.bw_log2;
-  g.tiles_h = (H + g.bh - 1) / g.bh;
-  g.tiles = (long long)N * g.tiles_h * g.tiles_w;
-  return g;
-}
-
-// tile -> (image, first row, first column)
-__device__ __forceinline__ void tile_origin(const Geo& g, long long t, int& n, int& h0, int& w0) {
-  const int per = g.tiles_h * g.tiles_w;
-  n = (int)(t / per);
-  const int r = (int)(t - (long long)n * per);
-  h0 = (r / g.tiles_w) * g.bh;
-  w0 = (r % g.tiles_w) << g.bw_log2;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = sm90::smem_u32(p);
-  return p + ((1024 - (s & 1023)) & 1023);
-}
-
-template <int THREADS>
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
-}
-
 template <typename T>
 struct Io2;
 
@@ -652,25 +621,6 @@ struct Io2<float> {
     *reinterpret_cast<float2*>(p) = make_float2(u, v);
   }
 };
-
-// Producer side of a ring: wait until stage s is free for its use-th
-// fill, then expect `bytes` on full[s].
-__device__ __forceinline__ void ring_acquire(uint64_t* full, uint64_t* empty, int s, int use,
-                                             uint32_t bytes) {
-  sm90::mbar_wait(&empty[s], (use & 1) ^ 1);
-  sm90::mbar_arrive_expect_tx(&full[s], bytes);
-}
-
-// One thread: the ring's barriers, `full` awaiting the producer's one
-// arrival (and the bytes it expects), `empty` one arrival a consumer warp.
-__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages,
-                                          int consumer_warps) {
-  for (int s = 0; s < stages; ++s) {
-    sm90::mbar_init(&full[s], 1);
-    sm90::mbar_init(&empty[s], consumer_warps);
-  }
-  sm90::mbar_fence_init();
-}
 
 // A block walks tiles blockIdx.x, + gridDim.x, ... (persistent: one wave
 // of resident blocks), its producer running ahead across tiles, and sums
@@ -1140,16 +1090,6 @@ long long tma_workspace(int N, int H, int W) {
   return (long long)N * H * W * C / 2 + p.dg.tiles * 3 * C + p.chunks * 9LL * C * C;
 }
 
-// A map over an (N, H, W, C) bf16 activation, boxes of cb channels x
-// box_w columns x BH rows
-bool act_map(CUtensorMap* map, const void* base, const Geo& g, int C, int cb, int box_w) {
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.N};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)g.W * C * 2,
-                                 (cuuint64_t)g.H * g.W * C * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cb, (cuuint32_t)box_w, (cuuint32_t)g.bh, 1};
-  return sm90::make_map(map, base, 4, dims, strides, box, cb * 2);
-}
-
 // dgrad's dynamic shared memory: the ring (stage = the A room + the taps'
 // wT rows) and, at C >= 64, the epilogue's scratch
 template <int C>
@@ -1170,38 +1110,9 @@ cudaError_t launch_dgrad(const CUtensorMap& map_g, const CUtensorMap& map_w, con
   using S = DgShape<C>;
   auto kernel = tma_dgrad_kernel<T, C, HALO>;
   const int smem = dgrad_smem<C>(stages, HALO, a_bytes);
-  // the attribute and the blocks a multiprocessor holds, queried once per
-  // device and shared-memory size (the host's cost counts in every call):
-  // a few slots, since the size follows d
-  struct Seen {
-    int dev, smem, sms, per_sm;
-  };
-  static Seen seen[8] = {};
-  static int next = 0, attr_dev = -1;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  long long grid = 0;
+  cudaError_t err = sm90::wave_blocks(kernel, S::THREADS, smem, SMEM_LIMIT, &grid);
   if (err != cudaSuccess) return err;
-  if (attr_dev != dev) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err != cudaSuccess) return err;
-    attr_dev = dev;
-  }
-  const Seen* hit = nullptr;
-  for (const Seen& e : seen)
-    if (e.sms > 0 && e.dev == dev && e.smem == smem) hit = &e;
-  if (!hit) {
-    Seen e = {dev, smem, 0, 0};
-    if ((err = cudaDeviceGetAttribute(&e.sms, cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&e.per_sm, kernel, S::THREADS,
-                                                             smem)) != cudaSuccess)
-      return err;
-    seen[next] = e;
-    hit = &seen[next];
-    next = (next + 1) % 8;
-  }
-  const int sms = hit->sms, per_sm = hit->per_sm;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
   if (grid > geo.tiles) grid = geo.tiles;
   *rows = grid;
   kernel<<<(unsigned)grid, S::THREADS, smem, stream>>>(
@@ -1248,9 +1159,9 @@ cudaError_t launch_tma(const void* x, const void* g, const float* a, const float
   const cuuint64_t wdims[3] = {(cuuint64_t)C, (cuuint64_t)C, 9};
   const cuuint64_t wstrides[2] = {(cuuint64_t)C * 2, (cuuint64_t)C * C * 2};
   const cuuint32_t wbox[3] = {(cuuint32_t)CB, (cuuint32_t)CB, 1};
-  if (!act_map(&map_gd, gb, p.dg, C, CB, halo ? bw + 2 * d : bw) ||
-      !act_map(&map_gw, gb, p.wg, C, CB, wbw) ||
-      !act_map(&map_z, zb, p.wg, C, CB, whalo ? WS::PIX + 2 * d : wbw) ||
+  if (!act_map(&map_gd, gb, p.dg, C, CB, halo ? bw + 2 * d : bw, CB * 2) ||
+      !act_map(&map_gw, gb, p.wg, C, CB, wbw, CB * 2) ||
+      !act_map(&map_z, zb, p.wg, C, CB, whalo ? WS::PIX + 2 * d : wbw, CB * 2) ||
       !sm90::make_map(&map_w, wT, 3, wdims, wstrides, wbox, CB * 2))
     return cudaErrorNotSupported;
 

@@ -15,7 +15,13 @@
 //   K), LBO = the distance to the next S/2 elements of M or N; a step of
 //   16 in K adds 16*S bytes.
 // A TMA box whose innermost extent is S bytes, loaded with the same
-// swizzle into an 8*S-aligned buffer, lands in exactly these layouts.
+// swizzle into an 8*S-aligned buffer, lands in exactly these layouts;
+// threads that write such a buffer themselves put the 16-byte chunk at
+// byte offset o (from a 1024-aligned base) at swizzle(o) below.
+//
+// Also the pieces the pipelined convolution kernels (K1 in convseg.cu, K2
+// in convseg_bwd.cu) share: the pixel tiling (Geo), the producer/consumer
+// ring of stages, and the tensor maps over NHWC activations.
 
 #pragma once
 
@@ -79,6 +85,22 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared)
+// before async-proxy reads of them (wgmma, TMA), once a barrier has joined
+// the writers and the readers.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The byte offset of the 16-byte chunk at offset o of a buffer swizzled by
+// S = 64 or 128 bytes: chunk bits 4..(log2 S - 1) XOR address bits 7.., as
+// TMA writes and wgmma reads it.
+template <int S>
+__device__ __forceinline__ uint32_t swizzle(uint32_t o) {
+  static_assert(S == 64 || S == 128, "swizzle span");
+  return o ^ ((o >> 3) & (S == 128 ? 0x70u : 0x30u));
 }
 
 // ------------------------------------------------------------------ TMA
@@ -237,19 +259,137 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tiled bf16 map of `rank` dimensions (dims and box innermost first,
-// strides in bytes of dims 1..rank-1), zero fill outside the tensor,
-// swizzle 64 or 128 bytes. Returns false if it cannot be encoded.
+// A tiled map of `rank` dimensions of `dtype` (dims and box innermost
+// first, strides in bytes of dims 1..rank-1), zero fill outside the
+// tensor, swizzle 64 or 128 bytes, or none (0) for a box that threads
+// read. Returns false if it cannot be encoded.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box, int swizzle_bytes) {
+                     const cuuint64_t* strides, const cuuint32_t* box, int swizzle_bytes,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      swizzle_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base), dims,
-            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The blocks of `kernel` (`threads` a block, `smem` bytes of dynamic shared
+// memory) that the current device holds at once: its multiprocessors times
+// the blocks each holds (at least one), the grid of a persistent kernel.
+// On first use for a kernel, device and size it raises the kernel's dynamic
+// shared-memory ceiling to `smem_limit` and queries the occupancy; then the
+// answer is cached (the host's cost counts in every call), a few slots,
+// since the size follows the dilation.
+template <typename Kernel>
+inline cudaError_t wave_blocks(Kernel kernel, int threads, int smem, int smem_limit,
+                               long long* blocks) {
+  struct Seen {
+    const void* fn;
+    int dev, smem;
+    long long blocks;
+  };
+  static Seen seen[16] = {};
+  static int next = 0;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (const Seen& e : seen)
+    if (e.fn == fn && e.dev == dev && e.smem == smem) {
+      *blocks = e.blocks;
+      return cudaSuccess;
+    }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  smem_limit)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+          cudaSuccess)
+    return err;
+  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  seen[next] = {fn, dev, smem, *blocks};
+  next = (next + 1) % 16;
+  return cudaSuccess;
+}
+
+// ------------------------------------------------ pixel tiles and rings
+
+// The pixel tiling of an image for tiles of `pix` pixels: BW = the power
+// of two >= W up to pix, BH = pix / BW.
+struct Geo {
+  int N, H, W, bw_log2, bh, tiles_w, tiles_h;
+  long long tiles;
+};
+
+inline Geo make_geo(int N, int H, int W, int pix) {
+  Geo g;
+  g.N = N;
+  g.H = H;
+  g.W = W;
+  g.bw_log2 = 0;
+  while ((1 << g.bw_log2) < W && (2 << g.bw_log2) <= pix) ++g.bw_log2;
+  g.bh = pix >> g.bw_log2;
+  g.tiles_w = (W + (1 << g.bw_log2) - 1) >> g.bw_log2;
+  g.tiles_h = (H + g.bh - 1) / g.bh;
+  g.tiles = (long long)N * g.tiles_h * g.tiles_w;
+  return g;
+}
+
+// tile -> (image, first row, first column)
+__device__ __forceinline__ void tile_origin(const Geo& g, long long t, int& n, int& h0, int& w0) {
+  const int per = g.tiles_h * g.tiles_w;
+  n = (int)(t / per);
+  const int r = (int)(t - (long long)n * per);
+  h0 = (r / g.tiles_w) * g.bh;
+  w0 = (r % g.tiles_w) << g.bw_log2;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t s = smem_u32(p);
+  return p + ((1024 - (s & 1023)) & 1023);
+}
+
+// A barrier among the THREADS consumer threads (the producer warp, last
+// in the block, does not take part).
+template <int THREADS>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+}
+
+// Producer side of a ring: wait until stage s is free for its use-th
+// fill, then expect `bytes` on full[s].
+__device__ __forceinline__ void ring_acquire(uint64_t* full, uint64_t* empty, int s, int use,
+                                             uint32_t bytes) {
+  mbar_wait(&empty[s], (use & 1) ^ 1);
+  mbar_arrive_expect_tx(&full[s], bytes);
+}
+
+// One thread: the ring's barriers, `full` awaiting the producer's one
+// arrival (and the bytes it expects), `empty` one arrival a consumer warp.
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages,
+                                          int consumer_warps) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&full[s], 1);
+    mbar_init(&empty[s], consumer_warps);
+  }
+  mbar_fence_init();
+}
+
+// A map over an (N, H, W, C) activation of `dtype` (bf16 or f32), boxes of
+// cb channels x box_w columns x BH rows, swizzled as make_map says.
+inline bool act_map(CUtensorMap* map, const void* base, const Geo& g, int C, int cb, int box_w,
+                    int swizzle_bytes,
+                    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const cuuint64_t es = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)g.W, (cuuint64_t)g.H, (cuuint64_t)g.N};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * es, (cuuint64_t)g.W * C * es,
+                                 (cuuint64_t)g.H * g.W * C * es};
+  const cuuint32_t box[4] = {(cuuint32_t)cb, (cuuint32_t)box_w, (cuuint32_t)g.bh, 1};
+  return make_map(map, base, 4, dims, strides, box, swizzle_bytes, dtype);
 }
 
 }  // namespace sm90

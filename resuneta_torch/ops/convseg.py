@@ -31,6 +31,13 @@ The train segment comes in the reference's two fused modes
   dtype, + bias in x's dtype) with the same K2 backward, which recomputes z
   from x and so does not depend on how the forward ran.
 
+On the card K1 has two designs in one CUDA source (kernels/csrc/convseg.cu),
+chosen by the channels alone (`k1_design`): C == Cout in {32, 64, 128},
+every segment of the default model, and 256 (the opt-in wide tier's
+RB(256)) runs the TMA-fed wgmma kernel that forms z once a stencil row in
+shared memory; C = 512 (the wide eval tier's RB(512)) and C != Cout run
+the first, WMMA kernel ("pr1"). One launch a call either way.
+
 `bn_act_conv` and `segment_bwd` are the wrappers: on a CUDA tensor each
 launches its CUDA kernels (kernels/csrc/convseg.cu, convseg_bwd.cu) or
 raises; only a tensor on the CPU takes the plain version
@@ -58,6 +65,8 @@ WIDE_BWD_LAUNCHES = 0
 BWDONLY_LAUNCHES = 0
 
 MAX_CHANNELS = 512
+# K1's channel counts (C == Cout) of its TMA-fed wgmma kernel
+TMA_CHANNELS = (32, 64, 128, 256)
 # the backward's channel counts: K2's narrow tier and K9's wide one
 BWD_CHANNELS = (32, 64, 128, 256)
 # the reference's wide ceilings (convseg.py MAX_CHANNELS_FWD, _BWD_WIDE)
@@ -118,6 +127,14 @@ def bn_act_conv_reference(x, a, b, w, bias, *, dilation, act=True):
         y = F.conv2d(z, wt, padding=dilation, dilation=dilation)
     y = y + bias.float()[:, None, None]
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def k1_design(C, Cout):
+    """Which of K1's CUDA kernels a call with C input and Cout output
+    channels launches: "tma_wgmma" (C == Cout in TMA_CHANNELS) or "pr1"
+    (the first, WMMA kernel: C = 512, C != Cout); convseg_forward routes
+    so."""
+    return "tma_wgmma" if C == Cout and C in TMA_CHANNELS else "pr1"
 
 
 def _check(x, a, b, w, bias, dilation):

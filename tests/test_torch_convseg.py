@@ -137,3 +137,89 @@ def test_wide_gate_runs_k9_where_the_reference_has_no_plan():
         for S in (32, 64):
             assert jconvseg._plan_tile(S, S, 256, d, bwd=True) is not None
     assert convseg.available(128, 256, 256, wide=True)
+
+
+def _tile_emulation(x, a, b, w, bias, d, act):
+    """convseg.cu's tma_fwd_kernel decomposition in plain torch: tiles of
+    128 pixels (BW = the power of two >= W up to 128, BH = 128 / BW, as
+    sm90::make_geo); with the halo (BW >= 64, BW + 2d <= 256) one box per
+    stencil row ky, BH rows x (BW + 2d) columns from (h0 + (ky-1)d, w0 - d),
+    read with zero fill (TMA's: x = 0 outside), z formed once from it and
+    masked to 0 on the box's image coordinates, flattened to rows of
+    pixels, and warpgroup wg's 64 pixels for tap kx read from row
+    arow + kx*d; else one box per tap, the tile shifted by it. The bias is
+    added in f32 and the overhang masked."""
+    N, H, W, C = x.shape
+    bw_log2 = 0
+    while (1 << bw_log2) < W and (2 << bw_log2) <= 128:
+        bw_log2 += 1
+    BW, BH = 1 << bw_log2, 128 >> bw_log2
+    halo = BW >= 64 and BW + 2 * d <= 256
+    wb = w.to(torch.bfloat16).float()
+    y = torch.zeros(N, H, W, w.shape[3])
+
+    def z_box(n, h_org, w_org, cols):
+        hh = torch.arange(BH)[:, None] + h_org
+        ww = torch.arange(cols)[None, :] + w_org
+        inside = (hh >= 0) & (hh < H) & (ww >= 0) & (ww < W)
+        raw = x[n, hh.clamp(0, H - 1), ww.clamp(0, W - 1)] * inside[..., None]
+        z = (raw.double() * a.double() + b.double()).float()
+        z = torch.relu(z) if act else z
+        z = torch.where(inside[..., None], z, torch.zeros(()))
+        return z.to(torch.bfloat16).float().reshape(BH * cols, C)
+
+    for n in range(N):
+        for h0 in range(0, H, BH):
+            for w0 in range(0, W, BW):
+                acc = torch.zeros(128, w.shape[3])
+                for ky in range(3):
+                    h_org = h0 + (ky - 1) * d
+                    if halo:
+                        box_w = BW + 2 * d
+                        z = z_box(n, h_org, w0 - d, box_w)
+                        for wg in range(2):
+                            arow = ((wg * 64) >> bw_log2) * box_w + \
+                                ((wg * 64) & (BW - 1))
+                            for kx in range(3):
+                                rows = z[arow + kx * d:arow + kx * d + 64]
+                                acc[64 * wg:64 * wg + 64] += rows @ wb[ky, kx]
+                    else:
+                        for kx in range(3):
+                            z = z_box(n, h_org, w0 + (kx - 1) * d, BW)
+                            acc += z @ wb[ky, kx]
+                r = torch.arange(128)
+                hh, ww = h0 + (r >> bw_log2), w0 + (r & (BW - 1))
+                keep = (hh < H) & (ww < W)
+                y[n, hh[keep], ww[keep]] = acc[keep] + bias.float()
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("N,H,W,C,d", [
+    (1, 4, 40, 32, 3),     # ragged W: a 2 x 64 tile overhangs by 24
+    (1, 4, 64, 64, 1),     # W = 64: the 2 x 64 tile
+    (1, 3, 130, 32, 2),    # W > 128: 1 x 128 tiles, the second ragged
+    (1, 3, 64, 32, 31),    # d >= H: the rows of the box outside the image
+    (2, 5, 7, 32, 8),      # H*W under a tile, W <= 32: a box per tap
+    (1, 2, 128, 32, 70),   # BW + 2d > 256: a box per tap
+])
+def test_tile_algorithm_matches_reference(N, H, W, C, d, act):
+    """The kernel's tiling, halo boxes, image mask and tap offsets, emulated
+    in plain torch, equal the plain version: b > 0 so that act(b) != 0 and
+    a mask taken from TMA's zero fill (x = 0) would show. Only the order of
+    the f32 sums differs (the products of bf16 values are exact in f32)."""
+    x, a, b, w, bias = (torch.from_numpy(t)
+                        for t in _inputs(N, H, W, C, seed=10 * W + d))
+    b = b.abs() + 0.3
+    got = _tile_emulation(x, a, b, w, bias, d, act)
+    want = convseg.bn_act_conv_reference(x, a, b, w, bias, dilation=d,
+                                         act=act)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_k1_design_routes_by_channels():
+    """The TMA kernel takes C == Cout in {32, 64, 128, 256}; C = 512 and
+    C != Cout stay on the WMMA kernel (convseg_forward routes the same)."""
+    assert [convseg.k1_design(C, C) for C in (32, 64, 128, 256, 512)] == \
+        ["tma_wgmma"] * 4 + ["pr1"]
+    assert convseg.k1_design(32, 64) == "pr1"

@@ -72,6 +72,125 @@ def test_wrapper_raises_on_cuda_instead_of_falling_back(cuda):
                             dilation=1)
 
 
+def _k1_close(got, want, dtype):
+    """test_kernel_matches_plain's limits: f32 out 1e-4 abs (values of
+    magnitude ~1-4, only the order of the f32 sums differs); bf16 out a
+    one-ulp flip of the final rounding, 2^-7 relative and absolute."""
+    tol = (2 ** -7, 2 ** -7) if dtype == torch.bfloat16 else (0, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
+                               atol=tol[1])
+
+
+def _k1_call(x, a, b, w, bias, d, act=True):
+    """One K1 call on the card: one launch, y of x's dtype and shape."""
+    launches = convseg.LAUNCHES
+    got = convseg.bn_act_conv(x, a, b, w, bias, dilation=d, act=act)
+    torch.cuda.synchronize()
+    assert convseg.LAUNCHES == launches + 1
+    assert got.dtype == x.dtype and got.shape == (*x.shape[:3], w.shape[3])
+    return got
+
+
+# one shape of each level of chip_smoke.K1_LEVELS (the 256 px forward's
+# segments) at batch 2, every dilation of the level: (C, H = W, d)
+K1_LEVEL_SHAPES = [(32, 256, d) for d in (1, 3, 15, 31)] + \
+    [(64, 128, d) for d in (1, 3, 15, 31)] + [(128, 64, d) for d in (1, 3, 15)]
+
+
+# the wide tier's C = 256 segments (chip_smoke.WIDE_LEVELS) at batch 1:
+# 32^2 (the 256 px forward and step), 64^2 (512 px), 128^2 (1024 px)
+K1_WIDE_SHAPES = [(256, 32, d) for d in (1, 3, 15)] + [(256, 64, 15),
+                                                      (256, 128, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,S,d", K1_LEVEL_SHAPES + K1_WIDE_SHAPES)
+def test_k1_level_shapes_match_plain(cuda, C, S, d):
+    """The main path's shapes and the wide tier's C = 256 take the TMA
+    kernel and agree with the plain version at _k1_close's bf16 limits."""
+    assert convseg.k1_design(C, C) == "tma_wgmma"
+    x, a, b, w, bias = _inputs(2 if C < 256 else 1, S, S, C, C + d, cuda)
+    x = x.to(torch.bfloat16)
+    got = _k1_call(x, a, b, w, bias, d)
+    _k1_close(got, convseg.bn_act_conv_reference(x, a, b, w, bias,
+                                                 dilation=d),
+              torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("N,H,W,C,d", [(1, 6, 40, 32, 3),     # ragged W
+                                       (3, 5, 7, 64, 1),      # H*W < a tile
+                                       (2, 8, 64, 128, 2),    # the 2 x 64 tile
+                                       (2, 8, 8, 32, 8),      # d >= H, W
+                                       (1, 12, 64, 64, 31),   # d >= H, halo
+                                       (1, 4, 128, 32, 70),   # a box per tap
+                                       (1, 3, 130, 128, 4),   # W > 128
+                                       (1, 5, 40, 256, 3)])   # N in halves
+def test_k1_edge_shapes_match_plain(cuda, N, H, W, C, d, act, dtype):
+    """Tiles the image does not fill, the per-tap boxes (W <= 32, BW + 2d >
+    256), dilations past the image, with b > 0 so that act(b) != 0 where a
+    mask from TMA's zero fill (x = 0) would leak it, against the plain
+    version at _k1_close's limits."""
+    x, a, b, w, bias = _inputs(N, H, W, C, C + d, cuda)
+    x, b = x.to(dtype), b.abs() + 0.3
+    got = _k1_call(x, a, b, w, bias, d, act)
+    _k1_close(got, convseg.bn_act_conv_reference(x, a, b, w, bias,
+                                                 dilation=d, act=act), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 64, 128])
+def test_k1_zero_padding_is_of_z_not_of_act_b(cuda, C):
+    """The card twin of test_torch_convseg's test, exact: x = 0, b = 0.5 and
+    w = 1 into output channel 0 give C/2 for each tap inside the image, so
+    4 taps at a corner, 6 on an edge, 9 inside (small integers times 0.5:
+    exact in bf16 and f32)."""
+    x = torch.zeros(1, 8, 8, C, device=cuda)
+    a = torch.ones(C, device=cuda)
+    b = torch.full((C,), 0.5, device=cuda)
+    w = torch.zeros(3, 3, C, C, device=cuda)
+    w[..., 0] = 1.0
+    y = _k1_call(x, a, b, w, torch.zeros(C, device=cuda), 1)
+    assert y[0, 0, 0, 0].item() == 4 * C * 0.5
+    assert y[0, 0, 4, 0].item() == 6 * C * 0.5
+    assert y[0, 4, 4, 0].item() == 9 * C * 0.5
+    assert torch.count_nonzero(y[..., 1:]).item() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
+def test_k1_is_deterministic(cuda, C, dtype):
+    """Two calls on the same inputs give bit-identical y: each output is
+    summed by one warpgroup in a fixed order."""
+    x, a, b, w, bias = _inputs(2, 24, 40, C, C, cuda)
+    x = x.to(dtype)
+    first = _k1_call(x, a, b, w, bias, 3)
+    second = _k1_call(x, a, b, w, bias, 3)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,Cout", [(512, 512), (64, 32), (32, 128)])
+def test_k1_wmma_kernel_still_serves_the_rest(cuda, C, Cout):
+    """C = 512 (the wide eval tier's RB(512)) and C != Cout stay on the
+    first, WMMA kernel, one launch a call, against the plain version at
+    _k1_close's limits."""
+    assert convseg.k1_design(C, Cout) == "pr1"
+    x, a, b, _, _ = _inputs(2, 16, 16, C, C, cuda)
+    rng = np.random.default_rng(C + Cout)
+    w = torch.from_numpy((rng.standard_normal((3, 3, C, Cout)) /
+                          (3 * C ** 0.5)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.standard_normal(Cout).astype(np.float32)
+                            * 0.1).to(cuda)
+    x = x.to(torch.bfloat16)
+    got = _k1_call(x, a, b, w, bias, 2)
+    _k1_close(got, convseg.bn_act_conv_reference(x, a, b, w, bias,
+                                                 dilation=2), torch.bfloat16)
+
+
 @pytest.mark.gpu
 def test_model_on_card_matches_cpu_plain_path(cuda):
     """64 px, f32, TF32 off: 44 launches per forward; the card's seg

@@ -26,7 +26,8 @@ Prints one JSON line: the card (nvidia-smi name and power limit), the
 routing and modes, the host wall time per step (without the profiler,
 and under it), the peak device memory, the device busy time per step (sum
 of kernel times, under the profiler), the busy share, the time of each of
-the port's kernels (K1 convseg_kernel, K2 dgrad/wgrad at C <= 128, K9
+the port's kernels (K1 tma_fwd_kernel, and the WMMA convseg_kernel where
+C = 512 or C != Cout, K2 dgrad/wgrad at C <= 128, K9
 dgrad/wgrad at C = 256, their reduce_rows, K3 densemm_*, K4 poolconv_*, the
 EDT's jfa_pass and its seeds and distances (K5 and K7 alike), and
 canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
@@ -57,6 +58,7 @@ def _k2(name, wide):
 
 
 GROUPS = {
+    "K1 tma_fwd_kernel": lambda k: "tma_fwd_kernel" in k,
     "K1 convseg_kernel": lambda k: "convseg_kernel" in k,
     "K2 dgrad_kernel": _k2("dgrad_kernel", False),
     "K2 wgrad_kernel": _k2("wgrad_kernel", False),
