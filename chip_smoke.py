@@ -66,7 +66,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             Voronoi-blob class ids through make_device_pipeline) in the
             dense-trunk routing, the card's default: per step 44 K1
             launches, 44 K2 calls of 4 launches, 12 K3 calls each way (1
-            and 3 launches a call), 3 K4 calls each way (likewise), one EDT
+            launch a call forward; 3 backward, 4 where a part is
+            upsampled), 3 K4 calls each way (1 and 3), one EDT
             call of 12 launches and one K6 launch; finite metric rows; the
             loss after 10 steps on one batch below the first step's. Times
             the warm steps (median, with a synchronise). Then 3 steps of
@@ -195,6 +196,8 @@ K3_CALLS = (
       (8, 32, False, 8, 1), (32, 256, False, 1, 1)), 32),
 )
 K4_CALLS = tuple((f"PSPPooling_1 level {k}", 32, 256, 8, k) for k in (2, 4, 8))
+# the bf16 K3 calls with an upsampled part: their backward is four launches
+K3_UPS_CALLS = sum(any(p[3] > 1 for p in parts) for _, parts, _ in K3_CALLS)
 TOLERANCE = (f"bf16 results: |err| <= {ATOL_OF_MAX}*max|plain| + "
              f"{BF16_ULP}*|plain|; f32 ones: {ATOL_OF_MAX}*max|plain|")
 NHWC_STEPS = 3
@@ -637,7 +640,8 @@ def phase_k3(densemm, F):
         b_fwd, by_fwd = bound(ff, fb)
         b_bwd, by_bwd = bound(bf, bb)
         row = {"phase": "k3", "call": name, "N": N, "H": H, "cout": cout,
-               "parts": [list(p) for p in parts], "max_abs_err": err,
+               "parts": [list(p) for p in parts],
+               "design": densemm.k3_design(xs[0].dtype), "max_abs_err": err,
                "tolerance": TOLERANCE,
                "ms_fwd": fwd_ms, "ms_bwd": bwd_ms,
                "plain_ms_fwd": plain_fwd, "plain_ms_bwd": plain_bwd,
@@ -1068,11 +1072,13 @@ def expected_counts(steps, dense, patch=PATCH, segments=44, k1=True,
     backward, `wide` of them at C = 256 (K9), all of them from
     FusedSegmentBwdOnly's backward (K10) with bwd_only; on the dense
     trunk's tail 12 K3 and 3 K4 calls each way (one launch forward, three
-    backward); LABEL_LAUNCHES."""
+    backward, and a fourth before the backward of each K3 call with an
+    upsampled part: K3_UPS_CALLS of them); LABEL_LAUNCHES."""
     k3, k4 = (12, 3) if dense else (0, 0)
+    k3_bwd = 3 * k3 + (K3_UPS_CALLS if dense else 0)
     per = {"K1": segments if k1 else 0, "K2": 4 * segments,
            "K2 calls": segments, "K3": k3,
-           "K3 calls": k3, "K3 bwd": 3 * k3, "K3 bwd calls": k3, "K4": k4,
+           "K3 calls": k3, "K3 bwd": k3_bwd, "K3 bwd calls": k3, "K4": k4,
            "K4 calls": k4, "K4 bwd": 3 * k4, "K4 bwd calls": k4,
            **LABEL_LAUNCHES[patch], "K9": 4 * wide,
            "K10": 4 * segments if bwd_only else 0}
@@ -1407,7 +1413,8 @@ def main():
                            "materialised concat/upsample"),
             "per": f"one 16-patch 256 px dense-trunk train step: the "
                    f"{len(krows)} calls at their shapes, forward (1 launch "
-                   f"a call) and backward (3 launches a call)"})
+                   f"a call) and backward (3 launches a call"
+                   f"{', 4 with an upsampled part' if key == 'K3' else ''})"})
     for key, row_key, name, src, rep, unit in (
             ("K5/K7", "k5", "K5/K7 distance_transform_edt (JFA exact EDT "
              "over row bands staged in shared memory: one CUDA kernel for "

@@ -1,7 +1,8 @@
-// Shared pieces of K3 (densemm.cu) and K4 (poolconv.cu): 1x1 convolutions
-// as GEMMs over NHWC tensors whose A operand is gathered on the fly, for
-// sm_90a. Each kernel file wraps these device bodies in __global__ kernels
-// of its own name, so a profile tells K3 from K4.
+// PR 3's 1x1 convolutions as GEMMs over NHWC tensors whose A operand is
+// gathered on the fly, for sm_90a: K4 (poolconv.cu, bf16 and f32) and
+// K3's f32 path (densemm.cu; K3's bf16 path has Hopper kernels of its
+// own there). Each kernel file wraps these device bodies in __global__
+// kernels of its own name, so a profile tells K3 from K4.
 //
 // A "part" is one NHWC input of a 1x1 convolution, read at output pixel
 // (n, h, w) of an (N, H, W, cout) result as

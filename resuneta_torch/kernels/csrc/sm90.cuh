@@ -95,12 +95,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // The byte offset of the 16-byte chunk at offset o of a buffer swizzled by
-// S = 64 or 128 bytes: chunk bits 4..(log2 S - 1) XOR address bits 7.., as
-// TMA writes and wgmma reads it.
+// S = 32, 64 or 128 bytes: chunk bits 4..(log2 S - 1) XOR address bits
+// 7.., as TMA writes and wgmma reads it.
 template <int S>
 __device__ __forceinline__ uint32_t swizzle(uint32_t o) {
-  static_assert(S == 64 || S == 128, "swizzle span");
-  return o ^ ((o >> 3) & (S == 128 ? 0x70u : 0x30u));
+  static_assert(S == 32 || S == 64 || S == 128, "swizzle span");
+  return o ^ ((o >> 3) & (S == 128 ? 0x70u : (S == 64 ? 0x30u : 0x10u)));
 }
 
 // ------------------------------------------------------------------ TMA
@@ -124,9 +124,19 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
-// layout: 1 = 128-byte swizzle, 2 = 64-byte swizzle. The base offset
+// layout: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte. The base offset
 // (bits 49-51) stays 0: the swizzle follows the absolute shared-memory
 // address, as TMA's does, so a matrix may start on any 16-byte row of an
 // atom that TMA filled.
@@ -157,6 +167,29 @@ __device__ __forceinline__ void wgmma_wait() {
 // D's layout: thread t of the warpgroup holds, for each 8 columns j,
 // d[4j + {0, 1}] at row 16*(t/32) + (t%32)/4, columns 8j + 2*(t%4) + {0, 1},
 // and d[4j + {2, 3}] 8 rows below.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n8(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n32(float* d, uint64_t da, uint64_t db) {
   asm volatile(
@@ -228,8 +261,10 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
 
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 128, "wgmma width");
-  if constexpr (N == 32) wgmma_n32<TA, TB>(d, da, db);
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 8) wgmma_n8<TA, TB>(d, da, db);
+  else if constexpr (N == 16) wgmma_n16<TA, TB>(d, da, db);
+  else if constexpr (N == 32) wgmma_n32<TA, TB>(d, da, db);
   else if constexpr (N == 64) wgmma_n64<TA, TB>(d, da, db);
   else wgmma_n128<TA, TB>(d, da, db);
 }
@@ -261,7 +296,7 @@ inline EncodeTiledFn encode_tiled() {
 
 // A tiled map of `rank` dimensions of `dtype` (dims and box innermost
 // first, strides in bytes of dims 1..rank-1), zero fill outside the
-// tensor, swizzle 64 or 128 bytes, or none (0) for a box that threads
+// tensor, swizzle 32, 64 or 128 bytes, or none (0) for a box that threads
 // read. Returns false if it cannot be encoded.
 inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
                      const cuuint64_t* strides, const cuuint32_t* box, int swizzle_bytes,
@@ -271,6 +306,7 @@ inline bool make_map(CUtensorMap* map, const void* base, int rank, const cuuint6
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                       : CU_TENSOR_MAP_SWIZZLE_NONE;
   return fn(map, dtype, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -22,13 +22,18 @@ part's dx is full-resolution and zero at the pixels it does not read.
 `dense_mm_fwd` and `dense_mm_bwd` are the wrappers: on a CUDA tensor each
 launches its kernels (kernels/csrc/densemm.cu) or raises; only a tensor on
 the CPU takes the plain version (`dense_mm_reference`,
-`dense_mm_bwd_reference`). `LAUNCHES` and `BWD_LAUNCHES` count kernel
-launches as the CUDA side reports them (one a forward call, three a
-backward call), `CALLS` and `BWD_CALLS` wrapper calls on any device.
+`dense_mm_bwd_reference`). bf16 runs the Hopper kernels (TMA, wgmma;
+`k3_design` names them "tma_wgmma"), within the limits `refusal` states;
+f32 runs PR 3's CUDA-core tiles ("pr3"). `LAUNCHES` and `BWD_LAUNCHES`
+count kernel launches as the CUDA side reports them (one a forward call;
+`bwd_launches` a backward call: dgrad, wgrad and the fixed-order sum of
+wgrad's partials, and in bf16 with an upsampled part first the row sums
+of g), `CALLS` and `BWD_CALLS` wrapper calls on any device.
 `dense_mm` is the autograd.Function's entry.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,9 +46,15 @@ BWD_LAUNCHES = 0
 BWD_CALLS = 0
 
 MAX_PARTS = 5
-# wgrad blocks to aim for (about four waves on the H100's 132 SMs); the
-# pixel chunks of the weight gradient follow from it
+# the bf16 kernels' limits (densemm.cu k3::refusal): W^T (forward) and W
+# (dgrad) stay in shared memory, 64-channel rows of 128 bytes, N padded
+# to 8, 16, ..., 256
+_W_BUDGET = 128 * 1024
+_ROW = 128
+# wgrad blocks to aim for: four waves of the H100's 132 SMs (gemm1x1.cuh's
+# tiles: K3 in f32, K4), two (the bf16 kernel's larger blocks)
 _WGRAD_BLOCKS = 4 * 132
+_BF16_WGRAD_BLOCKS = 2 * 132
 _fns = None
 
 
@@ -179,6 +190,10 @@ def _check(xs, w, bias, acts, ups, strides):
     if w.device != x0.device or (bias is not None and
                                  bias.device != x0.device):
         raise ValueError("w and bias must be on the parts' device")
+    if x0.device.type == "cuda" and x0.dtype == torch.bfloat16:
+        why = _refusal(tuple(x.shape[3] for x in xs), cout, tuple(ups))
+        if why:
+            raise ValueError(f"K3's bf16 kernels refuse this call: {why}")
 
 
 def _kernels():
@@ -211,13 +226,89 @@ def _aligned(*ts):
         raise ValueError("K3 operands must be 16-byte aligned")
 
 
+def _pad_n(n):
+    p = 8
+    while p < n:
+        p *= 2
+    return p
+
+
+def _dgrad_groups(cins, ups):
+    """dgrad's column groups (densemm.cu k3::backward): the parts at the
+    output's resolution or strided while their channels fit 256 columns,
+    then each upsampled part alone: [(k, width)]."""
+    groups = []
+    for k in (1, 2, 4, 8):
+        for c in (c for c, kk in zip(cins, ups) if kk == k):
+            if groups and k == 1 and groups[-1][1] + c <= 256:
+                groups[-1] = (1, groups[-1][1] + c)
+            else:
+                groups.append((k, c))
+    return groups
+
+
+@functools.lru_cache(maxsize=256)
+def _refusal(cins, cout, ups):
+    return refusal(cins, cout, ups)
+
+
+def refusal(cins, cout, ups):
+    """Why the bf16 kernels refuse these shapes, or None: one wgmma N
+    (cin, cout <= 256), ups 1, 2, 4 or 8, at least one part at the
+    output's resolution or strided (dbias rides on its wgrad blocks), and
+    W^T (forward) and W (dgrad) within _W_BUDGET of shared memory."""
+    if cout > 256 or max(cins) > 256:
+        return f"cin {max(cins)} or cout {cout} over 256"
+    if any(k not in (1, 2, 4, 8) for k in ups):
+        return f"ups {ups} not all 1, 2, 4 or 8"
+    if all(k > 1 for k in ups):
+        return "every part is upsampled"
+    slices = sum(-(-c // 64) for c in cins)
+    if slices * _pad_n(cout) * _ROW > _W_BUDGET:
+        return f"W^T ({slices} x {_pad_n(cout)} rows) over the shared memory"
+    widths = [w for _, w in _dgrad_groups(cins, ups)]
+    if len(widths) * -(-cout // 64) * _pad_n(max(widths)) * _ROW > _W_BUDGET:
+        return "W over dgrad's shared memory"
+    return None
+
+
+def bwd_launches(dtype, ups):
+    """Kernel launches of one CUDA backward call: dgrad, wgrad and the
+    fixed-order sum of its partials; in bf16 with an upsampled part also
+    k3_rowsum_kernel (gg_k = bf16 of the f32 sum of k rows of g) first."""
+    return 3 + int(dtype == torch.bfloat16 and any(k > 1 for k in ups))
+
+
+def k3_design(dtype):
+    """The kernels a CUDA call of this dtype runs: "tma_wgmma" (bf16) or
+    "pr3" (f32, PR 3's CUDA-core tiles)."""
+    return "tma_wgmma" if dtype == torch.bfloat16 else "pr3"
+
+
 def wgrad_chunks(cins, cout, pixels):
-    """Pixel chunks of the weight gradient: about _WGRAD_BLOCKS blocks over
-    the (32-channel, 64-output) tiles of every part and the bias row, and
-    at most one chunk per 64 pixels."""
+    """Pixel chunks of gemm1x1.cuh's weight gradient (K3 in f32, K4):
+    about _WGRAD_BLOCKS blocks over the (32-channel, 64-output) tiles of
+    every part and the bias row, and at most one chunk per 64 pixels."""
     otiles = -(-cout // 64) if cout > 32 else 1
     tiles = (sum(-(-c // 32) for c in cins) + 1) * otiles
     return max(1, min(-(-_WGRAD_BLOCKS // tiles), -(-pixels // 64)))
+
+
+def bf16_wgrad_chunks(cins, ups, pixels):
+    """Pixel chunks of the bf16 wgrad's units at the output's resolution:
+    about two waves of the H100's 132 SMs over all its blocks (a unit is
+    two 64-channel slices of one k's parts and takes ceil(chunks / k)
+    blocks), at most one chunk per 64 pixels."""
+    return _bf16_wgrad_chunks(tuple(cins), tuple(ups), pixels)
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_wgrad_chunks(cins, ups, pixels):
+    weight = 0.0
+    for k in set(ups):
+        n = sum(-(-c // 64) for c, kk in zip(cins, ups) if kk == k)
+        weight += -(-n // 2) / k
+    return max(1, min(int(_BF16_WGRAD_BLOCKS / weight), -(-pixels // 64)))
 
 
 def dense_mm_fwd(xs, w, bias, *, acts=None, ups=None, strides=None):
@@ -236,7 +327,10 @@ def dense_mm_fwd(xs, w, bias, *, acts=None, ups=None, strides=None):
         raise ValueError(f"no kernel for device {x0.device}")
     N, H, W = _geometry(xs, ups, strides)
     cout = w.shape[1]
-    wc = w.to(_cd(x0)).contiguous()
+    bf16 = x0.dtype == torch.bfloat16
+    # W^T (bf16: the kernel keeps it K-major) or W (f32), in the compute type
+    wc = (w.t() if bf16 else w).to(
+        _cd(x0), memory_format=torch.contiguous_format).contiguous()
     b32 = bias.float().contiguous()
     y = torch.empty((N, H, W, cout), dtype=x0.dtype, device=x0.device)
     _aligned(*xs, wc, y)
@@ -275,15 +369,23 @@ def dense_mm_bwd(xs, g, w, *, acts=None, ups=None, strides=None):
                                       strides=strides)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
-    wT = w.t().to(_cd(x0)).contiguous()
+    bf16 = x0.dtype == torch.bfloat16
+    # W (bf16: dgrad reads its rows) or W^T (f32), in the compute type
+    wk = (w if bf16 else w.t()).to(
+        _cd(x0), memory_format=torch.contiguous_format).contiguous()
     dxs = [torch.empty_like(x) for x in xs]
     cins = [x.shape[3] for x in xs]
     dwb = torch.empty((sum(cins) + 1, cout), dtype=torch.float32,
                       device=x0.device)
-    chunks = wgrad_chunks(cins, cout, N * H * W)
-    work = torch.empty((chunks, sum(cins) + 1, cout), dtype=torch.float32,
-                       device=x0.device)
-    _aligned(*xs, g, wT, *dxs)
+    chunks = _bf16_wgrad_chunks(tuple(cins), tuple(ups), N * H * W) if bf16 \
+        else wgrad_chunks(cins, cout, N * H * W)
+    # the per-chunk partials of [dW; dbias], then (bf16, upsampled parts)
+    # gg_k = bf16(the f32 sum of k rows of g) for each k: (N, H/k, W, cout)
+    gg = sum(N * (H // k) * W * cout for k in set(ups) if k > 1) \
+        if bf16 else 0
+    work = torch.empty(chunks * (sum(cins) + 1) * cout + gg // 2,
+                       dtype=torch.float32, device=x0.device)
+    _aligned(*xs, g, wk, *dxs)
     ptrs, (ci, up, st, ac) = _carrays(xs, acts, ups, strides)
     dptrs = (ctypes.c_void_p * len(xs))(*(d.data_ptr() for d in dxs))
     n = ctypes.c_int(0)
@@ -291,7 +393,7 @@ def dense_mm_bwd(xs, g, w, *, acts=None, ups=None, strides=None):
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = bwd(ctypes.cast(ptrs, ctypes.c_void_p), ci, up, st, ac, len(xs),
-                 g.data_ptr(), wT.data_ptr(),
+                 g.data_ptr(), wk.data_ptr(),
                  ctypes.cast(dptrs, ctypes.c_void_p), dwb.data_ptr(),
                  work.data_ptr(), chunks, N, H, W, cout,
                  int(x0.dtype == torch.bfloat16), ctypes.byref(n), stream)

@@ -647,7 +647,8 @@ def test_k3_matches_plain(cuda, case, dtype):
     launches = densemm.BWD_LAUNCHES
     dxs, dw, db = densemm.dense_mm_bwd(xs, g, w, **spec)
     torch.cuda.synchronize()
-    assert densemm.BWD_LAUNCHES == launches + 3
+    assert densemm.BWD_LAUNCHES == launches + densemm.bwd_launches(
+        dtype, spec["ups"])
     wdxs, wdw, wdb = densemm.dense_mm_bwd_reference(xs, g, w, **spec)
     for dx, wdx, (_, _, _, _, _, s) in zip(dxs, wdxs, parts):
         _close(dx, wdx, ulp)
@@ -711,3 +712,115 @@ def test_k3_k4_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                           # NCHW strides
         poolconv.pool_conv_fwd(x.permute(0, 3, 1, 2), w[:, :8], bias[:8],
                                k=2)
+
+
+# --------------------------------------------- K3's Hopper kernels (bf16)
+
+def _k3_path_case(i, N):
+    """chip_smoke.K3_CALLS[i] at batch N: (parts as (cin, h, w, act, ups,
+    stride), cout)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    _, parts, cout = chip_smoke.K3_CALLS[i]
+    return [(c, h, h, a, k, s) for c, h, a, k, s in parts], cout
+
+
+def _k3_run(xs, w, bias, spec, g):
+    y = densemm.dense_mm_fwd(xs, w, bias, **spec)
+    got = densemm.dense_mm_bwd(xs, g, w, **spec)
+    torch.cuda.synchronize()
+    return y, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(12))
+def test_k3_path_shapes_match_plain(cuda, i):
+    """Each of the 256 px step's 12 calls at full width (batch 16, bf16)
+    through the Hopper kernels against the plain versions, every dx (a
+    strided part's zeros exactly), dW and dbias."""
+    parts, cout = _k3_path_case(i, 16)
+    xs, w, bias, spec = _k3_inputs(parts, cout, 16, torch.bfloat16, i, cuda)
+    assert densemm.k3_design(xs[0].dtype) == "tma_wgmma"
+    H = parts[0][1] // parts[0][5] * parts[0][4]
+    g = torch.randn((16, H, H, cout), device=cuda).to(torch.bfloat16)
+    y, (dxs, dw, db) = _k3_run(xs, w, bias, spec, g)
+    _close(y, densemm.dense_mm_reference(xs, w, bias, **spec), 2 ** -7)
+    wdxs, wdw, wdb = densemm.dense_mm_bwd_reference(xs, g, w, **spec)
+    for dx, wdx, p in zip(dxs, wdxs, parts):
+        _close(dx, wdx, 2 ** -7)
+        if p[5] > 1:
+            assert not dx[:, 1::2].any() and not dx[:, :, 1::2].any()
+    # dW and dbias: f32 sums over up to 10^6 pixels in another order than
+    # the plain version's matmul: within 1e-4 of the largest magnitude
+    # (chip_smoke.py holds the same calls to 1e-3; the PSP projection's
+    # plain part reads 1.9e-5 on an H100)
+    for got, want in ((dw, wdw), (db, wdb)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+# ragged shapes: W not a power of two (a tile overhangs), H * W under a
+# tile, a strided part with the ReLU, cout padded to the next wgmma width
+K3_RAGGED = [
+    ([(16, 10, 20, True, 2, 1), (24, 20, 40, False, 1, 1)], 40, 1),
+    ([(8, 24, 40, True, 1, 2)], 24, 2),
+    ([(32, 3, 5, False, 1, 1)], 8, 3),
+    ([(72, 12, 48, False, 1, 1), (8, 3, 12, True, 4, 1)], 136, 2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(K3_RAGGED)))
+def test_k3_ragged_shapes_match_plain(cuda, case):
+    parts, cout, N = K3_RAGGED[case]
+    xs, w, bias, spec = _k3_inputs(parts, cout, N, torch.bfloat16, 50 + case,
+                                   cuda)
+    _, h, w_, _, k, st = parts[0]
+    H, W = h // st * k, w_ // st * k
+    g = torch.randn((N, H, W, cout), device=cuda).to(torch.bfloat16)
+    y, (dxs, dw, db) = _k3_run(xs, w, bias, spec, g)
+    _close(y, densemm.dense_mm_reference(xs, w, bias, **spec), 2 ** -7)
+    wdxs, wdw, wdb = densemm.dense_mm_bwd_reference(xs, g, w, **spec)
+    for dx, wdx in zip(dxs, wdxs):
+        _close(dx, wdx, 2 ** -7)
+    _close(dw, wdw, 0)
+    _close(db, wdb, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", [0, 4, 11])
+def test_k3_backward_is_deterministic(cuda, i):
+    """Two runs of the backward on the same inputs give bitwise-equal dx,
+    dW and dbias (per-block partials summed in a fixed order)."""
+    parts, cout = _k3_path_case(i, 4)
+    xs, w, bias, spec = _k3_inputs(parts, cout, 4, torch.bfloat16, i, cuda)
+    H = parts[0][1] // parts[0][5] * parts[0][4]
+    g = torch.randn((4, H, H, cout), device=cuda).to(torch.bfloat16)
+    a = _k3_run(xs, w, bias, spec, g)
+    b = _k3_run(xs, w, bias, spec, g)
+    assert torch.equal(a[0], b[0])
+    for x, z in zip(a[1][0], b[1][0]):
+        assert torch.equal(x, z)
+    assert torch.equal(a[1][1], b[1][1]) and torch.equal(a[1][2], b[1][2])
+
+
+@pytest.mark.gpu
+def test_k3_f32_stays_on_pr3_kernels_and_bf16_limits_raise(cuda):
+    """f32 runs PR 3's kernels (design "pr3", the same launches); a bf16
+    call the Hopper kernels refuse raises instead of running another."""
+    assert densemm.k3_design(torch.float32) == "pr3"
+    xs, w, bias, spec = _k3_inputs([(32, 8, 8, False, 1, 1)], 264, 1,
+                                   torch.float32, 0, cuda)
+    n = densemm.LAUNCHES
+    densemm.dense_mm_fwd(xs, w, bias, **spec)                 # f32: cout 264
+    assert densemm.LAUNCHES == n + 1
+    with pytest.raises(ValueError, match="refuse"):           # bf16: cout 264
+        densemm.dense_mm_fwd([xs[0].bfloat16()], w, bias, **spec)
+    xs, w, bias, spec = _k3_inputs([(32, 4, 4, False, 2, 1)], 32, 1,
+                                   torch.bfloat16, 0, cuda)
+    with pytest.raises(ValueError, match="refuse"):           # all upsampled
+        densemm.dense_mm_fwd(xs, w, bias, **spec)
+    with pytest.raises(ValueError, match="refuse"):
+        densemm.dense_mm_bwd(xs, torch.zeros((1, 8, 8, 32), device=cuda,
+                                             dtype=torch.bfloat16), w, **spec)

@@ -28,7 +28,8 @@ and under it), the peak device memory, the device busy time per step (sum
 of kernel times, under the profiler), the busy share, the time of each of
 the port's kernels (K1 tma_fwd_kernel, and the WMMA convseg_kernel where
 C = 512 or C != Cout, K2 dgrad/wgrad at C <= 128, K9
-dgrad/wgrad at C = 256, their reduce_rows, K3 densemm_*, K4 poolconv_*, the
+dgrad/wgrad at C = 256, their reduce_rows, K3 k3_* (bf16) and densemm_*
+(f32, and the fixed-order sum of the bf16 wgrad), K4 poolconv_*, the
 EDT's jfa_pass and its seeds and distances (K5 and K7 alike), and
 canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
 GEMMs, the top kernels by total device time, the operators by device
@@ -54,7 +55,7 @@ def _k2(name, wide):
     # K3's and K4's kernels carry K2's names after their own prefix; K9 is
     # K2's template at C = 256
     return lambda k: name in k and "densemm" not in k and \
-        "poolconv" not in k and (", 256>" in k) == wide
+        "poolconv" not in k and "k3_" not in k and (", 256>" in k) == wide
 
 
 GROUPS = {
@@ -65,6 +66,10 @@ GROUPS = {
     "K9 dgrad_kernel": _k2("dgrad_kernel", True),
     "K9 wgrad_kernel": _k2("wgrad_kernel", True),
     "K2/K9 reduce_rows": lambda k: "reduce_rows" in k,
+    "K3 k3_fwd_kernel": lambda k: "k3_fwd_kernel" in k,
+    "K3 k3_rowsum_kernel": lambda k: "k3_rowsum_kernel" in k,
+    "K3 k3_dgrad_kernel": lambda k: "k3_dgrad_kernel" in k,
+    "K3 k3_wgrad_kernel": lambda k: "k3_wgrad_kernel" in k,
     "K3 densemm_fwd_kernel": lambda k: "densemm_fwd_kernel" in k,
     "K3 densemm_dgrad_kernel": lambda k: "densemm_dgrad_kernel" in k,
     "K3 densemm_wgrad_kernel": lambda k: "densemm_wgrad_kernel" in k,
