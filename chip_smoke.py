@@ -37,8 +37,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             (library_ms). k10: the segment of mode "2" (a cuDNN forward,
             the K2 backward) at the 11 shapes, through autograd, against
             its plain version. Each k2 row names the design that took
-            it: "tma_wgmma" (K2's TMA-fed wgmma kernels, C <= 128) or
-            "pr5" (K9's, C = 256).
+            it (convseg.k2_design): "tma_wgmma", the TMA-fed wgmma dgrad
+            and wgrad, at every C (K9 in two 128-channel halves of N).
 5. k3, k4 - K3 (the 1x1 conv over concat parts) and K4 (max pool -> 1x1
             conv), forward and backward, against their plain versions at
             the 12 and 3 shapes of the dense-trunk train step (batch 16,
@@ -483,7 +483,7 @@ def phase_k2(convseg):
         row = {"phase": "k2", "N": N, "H": S, "W": S, "C": C, "d": d,
                "act": act, "path": path,
                "kernel": "K9" if C > 128 else "K2",
-               "design": "pr5" if C > 128 else "tma_wgmma",
+               "design": convseg.k2_design(C),
                "max_abs_err": max_err,
                "tolerance": TOLERANCE,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1343,8 +1343,9 @@ def main():
     k10 = per(k10_rows, "calls_per_step")
     wide_kernels = [{
         "name": "K9 segment_bwd at C = 256 (the wide tier's one-pass "
-                "backward: dgrad in 128-channel column tiles, wgrad in "
-                "128 x 64 tiles, BN sums); its forward is K1's kernel",
+                "backward: K2's TMA-fed wgmma dgrad and wgrad, each work "
+                "item one 128-channel half of N, BN sums); its forward is "
+                "K1's kernel",
         "route": "cuda",
         "source": "resuneta_torch/kernels/csrc/convseg_bwd.cu",
         "replaces": "resuneta_tpu/ops/pallas/convseg.py:611 (wide tier, "

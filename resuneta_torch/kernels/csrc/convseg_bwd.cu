@@ -25,80 +25,87 @@
 // small). In bf16 that is 144 flops a byte at C = 32 (bytes bound on the
 // H100), 576 at C = 64, 2304 at C = 128 and 9216 at C = 256 (tensor-core
 // bound). At the 256 px step's shapes (1M, 256K, 64K pixels) every call is
-// 38.7 GFLOP: 0.039 ms at the card's bf16 peak.
+// 38.7 GFLOP: 0.039 ms at the card's bf16 peak; K9's calls (16K-32K
+// pixels at C = 256) are 38.7-77.3 GFLOP, 0.039-0.078 ms.
 //
 // Every call is four launches on the caller's stream, no atomics, and the
 // result is deterministic; against the plain version only the order of
 // the f32 sums differs.
 //
-// K2 (C <= 128): TMA-fed, mbarrier-pipelined wgmma, in two kernels.
+// One design for every C: TMA-fed, mbarrier-pipelined wgmma, in two
+// kernels.
 // * Pixel tiles are rectangles of one image, BH rows x BW columns (BW the
 //   power of two >= W up to the tile: dgrad's 128 pixels are 1 x 128 at W
-//   >= 128 and 2 x 64 at W = 64; wgrad's 64 are 1 x 64), so each
-//   tap-shifted operand is one TMA box of a 4-D tensor map over (C, W, H,
-//   N); TMA fills zeros where the box leaves the image, which is the
-//   conv's SAME padding with no bounds arithmetic; where W is not a
-//   multiple of BW the box overhangs and the epilogue masks those pixels.
+//   >= 128, 2 x 64 at W = 64 and 4 x 32 at W = 32; wgrad's 64 are 1 x 64
+//   or 2 x 32), so each tap-shifted operand is one TMA box of a 4-D tensor
+//   map over (C, W, H, N); TMA fills zeros where the box leaves the
+//   image, which is the conv's SAME padding with no bounds arithmetic;
+//   where W is not a multiple of BW the box overhangs and the epilogue
+//   masks those pixels.
 // * A block is consumer warpgroups and one producer warp whose one thread
 //   keeps TMA loads in flight through a ring of stages, each with a `full`
 //   mbarrier (transaction bytes) and an `empty` one (one arrival per
 //   consumer warp once its wgmma has read the stage). A wait that lasts
 //   seconds traps instead of hanging.
 // * tma_dgrad_kernel: M = a tile's 128 pixels (two warpgroups of 64), N =
-//   C, K = 9 taps x C. A is gb, K-major; B the taps' rows of wT, MN-major
-//   (wgmma's transpose bit). Blocks are persistent (one wave), the
-//   producer running ahead across tiles. Where a warpgroup's 64 pixels lie
-//   in one image row (BW >= 64: every shape of the main path) a K step
-//   loads one box BW + 2d columns wide and the three taps of a stencil row
-//   start their descriptors at row offsets 0, d, 2d of it: a third of the
-//   shifted loads. The epilogue recomputes z_pre = __fmaf_rn(x, a, b),
-//   masks, writes dx and zb = bf16(act(z_pre)) to a workspace (N, H, W, C)
-//   bf16 (the block owns every channel of its pixels, so wgrad never forms
-//   z again), and sums S1, S2 and dc over the block's tiles in a fixed
-//   order into one row of partials; at C >= 64 it goes through an f32
-//   scratch in shared memory for 16-byte accesses, at C = 32 straight
-//   from the accumulators (the scratch path's registers would cost
-//   resident blocks).
+//   NC = min(C, 128) channels of dz, K = 9 taps x C. A is gb, K-major; B
+//   the taps' rows of wT, MN-major (wgmma's transpose bit). A work item is
+//   (tile, N part): one part at C <= 128, two halves of 128 channels at C
+//   = 256. A block owning all 256 would hold 128 f32 accumulators a
+//   thread, a 96 KB stage of three taps' wT rows and a 135 KB epilogue
+//   scratch; as halves a K9 item is K2's C = 128 item with K doubled, and
+//   g, read twice, comes mostly from L2 (9216 flops a byte leaves room).
+//   Blocks are persistent (one wave, a multiple of the parts, so a block
+//   keeps one half: its BN parameters and its row of partials), the
+//   producer running ahead across items. Where a warpgroup's 64 pixels
+//   lie in one image row (BW >= 64) a K step loads one box BW + 2d
+//   columns wide and the three taps of a stencil row start their
+//   descriptors at row offsets 0, d, 2d of it: a third of the shifted
+//   loads (at 32^2, BW = 32, a K step is one tap). The epilogue recomputes
+//   z_pre = __fmaf_rn(x, a, b), masks, writes dx and zb = bf16(act(z_pre))
+//   to a workspace (N, H, W, C) bf16 (an item owns its channels of its
+//   pixels, so wgrad never forms z again), and sums S1, S2 and dc over the
+//   block's items in a fixed order into its half of one row of partials
+//   (blocks 2r and 2r + 1 share row r at C = 256); at C >= 64 it goes
+//   through an f32 scratch in shared memory for 16-byte accesses, at C =
+//   32 straight from the accumulators (the scratch path's registers would
+//   cost resident blocks).
 // * tma_wgrad_kernel: dW_t = sum_p zb[p + t*d] (outer) gb[p], the same
 //   pairs as above since both are 0 outside the image; M = a 64-row tile
-//   of (tap, input channel), N = C, K = pixels. zb is the shifted operand,
-//   gb the unshifted one, both MN-major. At C = 32 the 64 rows are two
-//   taps' 32 channels (two 64-byte-swizzled boxes one LBO apart; tap 8
-//   has no partner), at C = 64 one tap, at C = 128 one tap's half. A
-//   block is (pixel chunk, 5 M tiles at C = 32, else 3), stages of 64
-//   pixels; each warpgroup writes its tile of the chunk's partial dW.
-// * reduce_rows sums the S1/S2/dc partials over dgrad's blocks, and the
-//   dW partials over chunks (reduce_cols at C = 128, whose 9 C^2 columns
+//   of (tap, input channel), N = NC output channels, K = pixels. zb is the
+//   shifted operand, gb the unshifted one, both MN-major. At C = 32 the 64
+//   rows are two taps' 32 channels (two 64-byte-swizzled boxes one LBO
+//   apart; tap 8 has no partner), at C >= 64 one tap's 64 channels. A
+//   block is (pixel chunk, 5 M tiles at C = 32, else 3: the three taps of
+//   one stencil row, which share one halo box of zb, N part), stages of 64
+//   pixels; each warpgroup writes its tile of the chunk's partial dW. At C
+//   = 256 an n256 accumulator (128 registers a thread) would allow two
+//   consumer warpgroups, which do not share a row's box; N in two n128
+//   halves keeps three and reads zb twice. A chunk's partial is 9 C^2
+//   floats (2.36 MB at C = 256), so K9 takes one wave of blocks (5 chunks
+//   x 24), K2 two.
+// * reduce_rows sums the S1/S2/dc partials over dgrad's rows, and the dW
+//   partials over chunks (reduce_cols at C >= 128, whose 9 C^2 columns
 //   fill the card a thread each), each in a fixed order.
 // * f32 inputs: TMA reads bf16, so the caller appends bf16(g) to the
 //   workspace (the same round to nearest); x stays f32 for the epilogue
 //   and dx is written in x's type.
-// * The bound is the tensor cores at C = 64, 128 and the four activation
-//   streams at C = 32; the kernels are paced by neither yet (PERF.md).
-//
-// K9 (C = 256): the first design of this backward, kept as it is:
-// dgrad_kernel and wgrad_kernel below (legacy WMMA 16x16x16 through
-// registers).
-// * dgrad_kernel: an implicit GEMM shaped as K1's forward: M = pixels (128
-//   per block), N = C in column tiles of 128 channels (a block that owned
-//   all 256 would need 52 KB of static shared memory and 16 accumulator
-//   fragments a warp), K = 9 taps x C. Each K step gathers the tap-shifted
-//   g of the tile into shared memory; the epilogue recomputes z_pre from
-//   x, applies the mask, writes dx and reduces S1, S2 and dc of the tile's
-//   channels into its part of one row of per-block partials.
-// * wgrad_kernel: each block owns (pixel chunk, tap, 128 input channels, 64
-//   output columns), recomputes zb for its pixels and channels while
-//   staging them, gathers the shifted gb, sums over its chunk on the
-//   tensor cores and writes one partial tile.
+// * The bound is the tensor cores at C >= 64 and the four activation
+//   streams at C = 32. At C = 256 both kernels are paced by the stages
+//   they stream from L2 (tools/torch_k9_ablate.py: without the wgmma
+//   dgrad keeps 70% of its time and wgrad 70%; a deeper wgrad ring
+//   changes nothing), dgrad's mostly wT, read again for every 128-pixel
+//   item, and its epilogue, which the tensor cores wait for, 18%. So the
+//   halo box stays where it fits (a box a tap reads 40% more and is 10%
+//   slower at 64^2 and 128^2) and wgrad keeps one wave (two waves write
+//   twice the dW partials and lose what they gain). PERF.md has the
+//   times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -111,13 +118,8 @@ using sm90::ring_acquire;
 using sm90::ring_init;
 using sm90::tile_origin;
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BM = 128;       // dgrad: output pixels per block
-constexpr int BK = 32;        // dgrad: channels of g per K step
-constexpr int A_LD = BK + 8;
-constexpr int A_CHUNKS = BM * BK / 8 / THREADS;
-constexpr int WG_CHUNK_TARGET = 4 * 132;  // wgrad blocks to aim for: ~4 waves
-
+// The epilogue's loads and stores of x's type: 8 elements (Io) or 2 (Io2)
+// as f32.
 template <typename T>
 struct Io;
 
@@ -156,449 +158,6 @@ struct Io<float> {
   }
 };
 
-// ------------------------------------------------------------------ dgrad
-
-template <int C>
-struct DgradShape {
-  static constexpr int BN = C < 128 ? C : 128;  // channels per column tile
-  static constexpr int TILES = C / BN;          // the grid's y extent
-};
-
-template <typename T, int C>
-__global__ void __launch_bounds__(THREADS)
-dgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-             const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ mean, const float* __restrict__ invstd,
-             const __nv_bfloat16* __restrict__ wT, T* __restrict__ dx,
-             float* __restrict__ part, int N, int H, int W, int d, int act) {
-  constexpr int BN = DgradShape<C>::BN;  // the block's column tile
-  constexpr int B_LD = BN + 8;
-  constexpr int WARP_N = BN / 2;   // 8 warps: 4 along M x 2 along N
-  constexpr int FM = 2;
-  constexpr int FN = WARP_N / 16;
-  constexpr int B_CHUNKS_ALL = BK * BN / 8;
-  constexpr int B_CHUNKS = (B_CHUNKS_ALL + THREADS - 1) / THREADS;
-
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-  __shared__ float sa[BN], sb[BN], smu[BN], sinv[BN];
-  __shared__ float red[4][3][BN];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp >> 1, warp_n = warp & 1;
-  const long long M = (long long)N * H * W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int cb0 = blockIdx.y * BN;  // the tile's first channel
-
-  for (int i = tid; i < BN; i += THREADS) {
-    sa[i] = a[cb0 + i];
-    sb[i] = b[cb0 + i];
-    smu[i] = mean[cb0 + i];
-    sinv[i] = invstd[cb0 + i];
-  }
-
-  int pn[A_CHUNKS], ph[A_CHUNKS], pw[A_CHUNKS], pc[A_CHUNKS];
-  bool pin[A_CHUNKS];
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    const int chunk = tid + i * THREADS;
-    const long long m = m0 + chunk / (BK / 8);
-    pc[i] = (chunk % (BK / 8)) * 8;
-    pin[i] = m < M;
-    const long long mm = pin[i] ? m : 0;
-    pw[i] = (int)(mm % W);
-    const long long t = mm / W;
-    ph[i] = (int)(t % H);
-    pn[i] = (int)(t / H);
-  }
-
-  constexpr int kc_steps = C / BK;
-  constexpr int k_steps = 9 * kc_steps;
-
-  float ra[A_CHUNKS][8];
-  bool rv[A_CHUNKS];
-  uint4 rb[B_CHUNKS];
-
-  // K step ks = (tap, 32 channels o of g): g at (h - dy, w - dx) and the
-  // rows o of W_tap^T.
-  auto load_global = [&](int ks) {
-    const int tap = ks / kc_steps;
-    const int c0 = (ks - tap * kc_steps) * BK;
-    const int dy = (tap / 3 - 1) * d, dxs = (tap % 3 - 1) * d;
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int hs = ph[i] - dy, ws = pw[i] - dxs;
-      rv[i] = pin[i] && hs >= 0 && hs < H && ws >= 0 && ws < W;
-      if (rv[i]) {
-        const long long off = (((long long)pn[i] * H + hs) * W + ws) * C + c0 + pc[i];
-        Io<T>::load8(g + off, ra[i]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < B_CHUNKS; ++j) {
-      const int chunk = tid + j * THREADS;
-      if (chunk < B_CHUNKS_ALL) {
-        const int row = chunk / (BN / 8), col = (chunk % (BN / 8)) * 8;
-        const long long off = (long long)(tap * C + c0 + row) * C + cb0 + col;
-        rb[j] = *reinterpret_cast<const uint4*>(wT + off);
-      }
-    }
-  };
-
-  auto store_smem = [&]() {
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int r = (tid + i * THREADS) / (BK / 8);
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = rv[i] ? ra[i][e] : 0.0f;
-      Io<__nv_bfloat16>::store8(&As[r * A_LD + pc[i]], v);
-    }
-#pragma unroll
-    for (int j = 0; j < B_CHUNKS; ++j) {
-      const int chunk = tid + j * THREADS;
-      if (chunk < B_CHUNKS_ALL) {
-        const int row = chunk / (BN / 8), col = (chunk % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(&Bs[row * B_LD + col]) = rb[j];
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  __syncthreads();
-  load_global(0);
-  for (int ks = 0; ks < k_steps; ++ks) {
-    store_smem();
-    __syncthreads();
-    if (ks + 1 < k_steps) load_global(ks + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(warp_m * 32 + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * B_LD + warp_n * WARP_N + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: per fragment through a per-warp 16x16 f32 scratch; each lane
-  // takes one pixel row and 8 channels (co within the tile, cg in the
-  // tensor): mask, dx, and S1/S2/dc partials.
-  float* cs = Cs[warp];
-  const int r = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-  for (int j = 0; j < FN; ++j) {
-    const int co = warp_n * WARP_N + j * 16 + cc;
-    const int cg = cb0 + co;
-    float s1[8], s2[8], sg[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) s1[e] = s2[e] = sg[e] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + warp_m * 32 + i * 16 + r;
-      if (m < M) {
-        float xv[8], gv[8], out[8];
-        Io<T>::load8(x + m * C + cg, xv);
-        Io<T>::load8(g + m * C + cg, gv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int c = co + e;
-          const float zp = __fmaf_rn(xv[e], sa[c], sb[c]);
-          float dzp = cs[r * 16 + cc + e];
-          if (act && !(zp > 0.0f)) dzp = 0.0f;
-          out[e] = dzp * sa[c];
-          const float xhat = __fmul_rn(__fsub_rn(xv[e], smu[c]), sinv[c]);
-          s1[e] += dzp;
-          s2[e] += dzp * xhat;
-          sg[e] += gv[e];
-        }
-        Io<T>::store8(dx + m * C + cg, out);
-      }
-      __syncwarp();
-    }
-    // sum over the 16 lanes that share cc (lane bit 0), in a fixed tree
-#pragma unroll
-    for (int off = 2; off < 32; off <<= 1) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], off);
-        s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], off);
-        sg[e] += __shfl_xor_sync(0xffffffffu, sg[e], off);
-      }
-    }
-    if (lane < 2) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        red[warp_m][0][co + e] = s1[e];
-        red[warp_m][1][co + e] = s2[e];
-        red[warp_m][2][co + e] = sg[e];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < 3 * BN; i += THREADS) {
-    const int k = i / BN, c = i % BN;
-    part[((long long)blockIdx.x * 3 + k) * C + cb0 + c] =
-        ((red[0][k][c] + red[1][k][c]) + red[2][k][c]) + red[3][k][c];
-  }
-}
-
-// ------------------------------------------------------------------ wgrad
-
-template <int C>
-struct WgradShape {
-  static constexpr int WBM = C < 128 ? C : 128;     // input channels (rows) per block
-  static constexpr int WBN = C < 64 ? C : 64;       // output columns per block
-  static constexpr int TILES = (WBM / 32) * (WBN / 32);  // 32x32 warp tiles
-  static constexpr int G = 8 / TILES;               // warps splitting the pixels
-  static constexpr int KSTEP = 32 * G;              // pixels staged per step
-  static constexpr int Z_LD = WBM + 8;
-  static constexpr int G_LD = WBN + 8;
-  static constexpr int STAGE_BYTES = KSTEP * (Z_LD + G_LD) * 2;
-  static constexpr int RED_BYTES = G * WBM * WBN * 4;
-  static constexpr int SMEM = STAGE_BYTES > RED_BYTES ? STAGE_BYTES : RED_BYTES;
-  static constexpr int BLOCK_TILES = (C / WBM) * (C / WBN);  // the grid's z extent
-  static_assert(TILES * G == 8, "8 warps");
-};
-
-template <typename T, int C>
-__global__ void __launch_bounds__(THREADS)
-wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-             const float* __restrict__ a, const float* __restrict__ b,
-             float* __restrict__ part, int N, int H, int W, int d, int act,
-             long long chunk_pixels) {
-  using S = WgradShape<C>;
-  constexpr int WBM = S::WBM, WBN = S::WBN, G = S::G, KSTEP = S::KSTEP;
-  constexpr int Z_LD = S::Z_LD, G_LD = S::G_LD, TN = WBN / 32;
-  constexpr int Z_CHUNKS = KSTEP * WBM / 8 / THREADS;
-  constexpr int G_CHUNKS = KSTEP * WBN / 8 / THREADS;
-  static_assert(Z_CHUNKS * THREADS * 8 == KSTEP * WBM, "z staging");
-  static_assert(G_CHUNKS * THREADS * 8 == KSTEP * WBN, "g staging");
-
-  __shared__ __align__(128) unsigned char smem[S::SMEM];
-  __shared__ float sa[WBM], sb[WBM];
-  __nv_bfloat16* Zs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Gs = Zs + KSTEP * Z_LD;
-  float* Red = reinterpret_cast<float*>(smem);  // reused after the main loop
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int kg = warp / S::TILES, tile = warp % S::TILES;
-  const int tm = tile / TN, tn = tile % TN;
-  const int tap = blockIdx.y;
-  const int cm0 = (blockIdx.z / (C / WBN)) * WBM;  // the tile's input channels
-  const int co0 = (blockIdx.z % (C / WBN)) * WBN;  // and output channels
-  const int dy = (tap / 3 - 1) * d, dxs = (tap % 3 - 1) * d;
-  const long long M = (long long)N * H * W;
-  const long long p_begin = (long long)blockIdx.x * chunk_pixels;
-  long long p_end = p_begin + chunk_pixels;
-  if (p_end > M) p_end = M;
-
-  for (int i = tid; i < WBM; i += THREADS) {
-    sa[i] = a[cm0 + i];
-    sb[i] = b[cm0 + i];
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (long long p0 = p_begin; p0 < p_end; p0 += KSTEP) {
-    // zb of the step's pixels, the tile's input channels
-#pragma unroll
-    for (int i = 0; i < Z_CHUNKS; ++i) {
-      const int chunk = tid + i * THREADS;
-      const int pix = chunk / (WBM / 8), c8 = (chunk % (WBM / 8)) * 8;
-      const long long m = p0 + pix;
-      float v[8];
-      if (m < p_end) {
-        Io<T>::load8(x + m * C + cm0 + c8, v);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] = __fmaf_rn(v[e], sa[c8 + e], sb[c8 + e]);
-          if (act) v[e] = fmaxf(v[e], 0.0f);
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.0f;
-      }
-      Io<__nv_bfloat16>::store8(&Zs[pix * Z_LD + c8], v);
-    }
-    // gb at the tap-shifted pixel, the block's output columns
-#pragma unroll
-    for (int i = 0; i < G_CHUNKS; ++i) {
-      const int chunk = tid + i * THREADS;
-      const int pix = chunk / (WBN / 8), o8 = (chunk % (WBN / 8)) * 8;
-      const long long m = p0 + pix;
-      float v[8];
-      bool ok = m < p_end;
-      long long src = 0;
-      if (ok) {
-        const int w = (int)(m % W);
-        const long long t = m / W;
-        const int h = (int)(t % H);
-        const long long n = t / H;
-        const int hs = h - dy, ws = w - dxs;
-        ok = hs >= 0 && hs < H && ws >= 0 && ws < W;
-        src = ((n * H + hs) * W + ws) * C + co0 + o8;
-      }
-      if (ok) {
-        Io<T>::load8(g + src, v);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = 0.0f;
-      }
-      Io<__nv_bfloat16>::store8(&Gs[pix * G_LD + o8], v);
-    }
-    __syncthreads();
-    // dW_tap[c, o] += sum_pix zb[pix, c] gb[pix, o]: A = zb^T (col-major
-    // view of the staged rows), B = gb (row-major); warp group kg takes
-    // pixels [32 kg, 32 kg + 32) of the step
-#pragma unroll
-    for (int kk = 0; kk < 32; kk += 16) {
-      const int k = kg * 32 + kk;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &Zs[k * Z_LD + tm * 32 + i * 16], Z_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Gs[k * G_LD + tn * 32 + j * 16], G_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // the G warp groups' tiles, then their fixed-order sum
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Red[(kg * WBM + tm * 32 + i * 16) * WBN + tn * 32 + j * 16],
-                              acc[i][j], WBN, wmma::mem_row_major);
-  __syncthreads();
-  float* out = part + ((long long)blockIdx.x * 9 + tap) * C * C;
-  for (int i = tid; i < WBM * WBN; i += THREADS) {
-    float s = Red[i];
-#pragma unroll
-    for (int k = 1; k < G; ++k) s += Red[k * WBM * WBN + i];
-    const int c = i / WBN, o = i % WBN;
-    out[(cm0 + c) * C + co0 + o] = s;
-  }
-}
-
-// --------------------------------------------------------------- reduce
-
-// out[col] = sum over rows of part[row, col], in a fixed order.
-__global__ void __launch_bounds__(1024)
-reduce_rows(const float* __restrict__ part, long long rows, int cols, float* __restrict__ out) {
-  __shared__ float sm[32][33];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * 32 + tx;
-  float s = 0.0f;
-  if (col < cols)
-    for (long long r = ty; r < rows; r += 32) s += part[r * cols + col];
-  sm[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && col < cols) {
-    float t = 0.0f;
-    for (int k = 0; k < 32; ++k) t += sm[k][tx];
-    out[col] = t;
-  }
-}
-
-// out[4i..4i+3] = sum over rows of part[row, 4i..4i+3], rows in order: a
-// thread a float4 column, so every row is read coalesced (K2's dW
-// partials: tens of rows, 9*C^2 columns); eight rows' loads in flight.
-__global__ void __launch_bounds__(256)
-reduce_cols(const float4* __restrict__ part, long long rows, int cols4, float4* __restrict__ out) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= cols4) return;
-  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (long long r0 = 0; r0 < rows; r0 += 8) {
-    float4 v[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      v[k] = r0 + k < rows ? part[(r0 + k) * cols4 + i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      s.x += v[k].x;
-      s.y += v[k].y;
-      s.z += v[k].z;
-      s.w += v[k].w;
-    }
-  }
-  out[i] = s;
-}
-
-// ------------------------------------------------- K2: TMA + wgmma (C <= 128)
-
-constexpr int WG_TARGET_BLOCKS = 2 * 132;  // wgrad blocks to aim for: two waves
-
-// dgrad: two consumer warpgroups of 64 pixels each (a tile of 128) and
-// one producer warp; a ring of stages of (the shifted gb box, the tap's wT
-// rows) and the epilogue's f32 dz scratch (see tma_dgrad_kernel)
-template <int C>
-struct DgShape {
-  static_assert(C == 32 || C == 64 || C == 128, "K2's channel counts");
-  static constexpr int CB = C < 64 ? 32 : 64;   // channels of a box: one swizzle row
-  static constexpr int SW = CB * 2;             // its bytes: the swizzle (64 or 128)
-  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma descriptor layout
-  static constexpr int NB = C / CB;             // boxes across C
-  static constexpr int PIX = 128;
-  static constexpr int A = PIX * SW;            // the shifted gb box
-  static constexpr int B_REGION = CB * SW;      // wT: CB rows (o) x CB channels (c)
-  static constexpr int SCR_LD = C + 8;          // f32 dz row: 8 banks apart
-  static constexpr int SCRATCH = PIX * SCR_LD * 4;
-  static constexpr int THREADS = 288;
-  static constexpr int CONSUMERS = 256;
-  static constexpr int WARPS = 8;               // consumer warps
-  static_assert(A % 1024 == 0 && B_REGION % 1024 == 0, "swizzle atoms stay aligned");
-};
-
-// wgrad: NWG consumer warpgroups, one 64-row M tile of (tap, input
-// channel) each, stages of 64 pixels, and one producer warp
-template <int C>
-struct WgShape {
-  static constexpr int CB = C < 64 ? 32 : 64;
-  static constexpr int SW = CB * 2;
-  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
-  static constexpr int NB = C / CB;
-  static constexpr int NWG = C == 32 ? 5 : 3;               // M tiles a block
-  static constexpr int PIX = 64;                            // pixels a stage
-  static constexpr int MTILES = C == 32 ? 5 : (C == 64 ? 9 : 18);
-  static constexpr int GROUPS = (MTILES + NWG - 1) / NWG;  // the grid's y extent
-  static constexpr int REGION = PIX * SW;                   // a box of zb or gb
-  static constexpr int A = (C == 32 ? 2 : 1) * REGION;      // a warpgroup's zb
-  static constexpr int THREADS = NWG * 128 + 32;
-  static constexpr int WARPS = NWG * 4;
-  static_assert(REGION % 1024 == 0, "swizzle atoms stay aligned");
-};
-
 template <typename T>
 struct Io2;
 
@@ -622,9 +181,109 @@ struct Io2<float> {
   }
 };
 
-// A block walks tiles blockIdx.x, + gridDim.x, ... (persistent: one wave
-// of resident blocks), its producer running ahead across tiles, and sums
-// S1, S2, dc over its tiles in a fixed order into one row of partials.
+// --------------------------------------------------------------- reduce
+
+// out[col] = sum over rows of part[row, col], in a fixed order.
+__global__ void __launch_bounds__(1024)
+reduce_rows(const float* __restrict__ part, long long rows, int cols, float* __restrict__ out) {
+  __shared__ float sm[32][33];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * 32 + tx;
+  float s = 0.0f;
+  if (col < cols)
+    for (long long r = ty; r < rows; r += 32) s += part[r * cols + col];
+  sm[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && col < cols) {
+    float t = 0.0f;
+    for (int k = 0; k < 32; ++k) t += sm[k][tx];
+    out[col] = t;
+  }
+}
+
+// out[4i..4i+3] = sum over rows of part[row, 4i..4i+3], rows in order: a
+// thread a float4 column, so every row is read coalesced (the dW
+// partials: 5-44 rows, 9*C^2 columns); eight rows' loads in flight.
+__global__ void __launch_bounds__(256)
+reduce_cols(const float4* __restrict__ part, long long rows, int cols4, float4* __restrict__ out) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= cols4) return;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (long long r0 = 0; r0 < rows; r0 += 8) {
+    float4 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = r0 + k < rows ? part[(r0 + k) * cols4 + i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s.x += v[k].x;
+      s.y += v[k].y;
+      s.z += v[k].z;
+      s.w += v[k].w;
+    }
+  }
+  out[i] = s;
+}
+
+// ------------------------------------------------------- TMA + wgmma
+
+constexpr int SMS = 132;                   // the H100's multiprocessors
+constexpr int WG_TARGET_BLOCKS = 2 * SMS;  // K2's wgrad blocks: two waves
+
+// dgrad: two consumer warpgroups of 64 pixels each (a tile of 128) and
+// one producer warp; a ring of stages of (the shifted gb box, the taps' wT
+// rows of the item's N part) and the epilogue's f32 dz scratch (see
+// tma_dgrad_kernel)
+template <int C>
+struct DgShape {
+  static_assert(C == 32 || C == 64 || C == 128 || C == 256, "K2's and K9's channel counts");
+  static constexpr int CB = C < 64 ? 32 : 64;   // channels of a box: one swizzle row
+  static constexpr int SW = CB * 2;             // its bytes: the swizzle (64 or 128)
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma descriptor layout
+  static constexpr int NC = C < 128 ? C : 128;  // a work item's channels of dz: its N
+  static constexpr int NH = C / NC;             // N parts of a tile (2 at C = 256)
+  static constexpr int NB = NC / CB;            // wT boxes across an item's N
+  static constexpr int KC = C / CB;             // gb boxes across C: K steps a tap
+  static constexpr int PIX = 128;
+  static constexpr int A = PIX * SW;            // the shifted gb box
+  static constexpr int B_REGION = CB * SW;      // wT: CB rows (o) x CB channels (c)
+  static constexpr int SCR_LD = NC + 8;         // f32 dz row: 8 banks apart
+  static constexpr int SCRATCH = PIX * SCR_LD * 4;
+  static constexpr int THREADS = 288;
+  static constexpr int CONSUMERS = 256;
+  static constexpr int WARPS = 8;               // consumer warps
+  static_assert(A % 1024 == 0 && B_REGION % 1024 == 0, "swizzle atoms stay aligned");
+};
+
+// wgrad: NWG consumer warpgroups, one 64-row M tile of (tap, input
+// channel) each, NC output channels, stages of 64 pixels, and one
+// producer warp
+template <int C>
+struct WgShape {
+  static constexpr int CB = C < 64 ? 32 : 64;
+  static constexpr int SW = CB * 2;
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;
+  static constexpr int NC = C < 128 ? C : 128;              // a block's output channels
+  static constexpr int NH = C / NC;                         // N parts (2 at C = 256)
+  static constexpr int NB = NC / CB;                        // gb boxes a stage
+  static constexpr int NWG = C == 32 ? 5 : 3;               // M tiles a block
+  static constexpr int PIX = 64;                            // pixels a stage
+  static constexpr int MTILES = C == 32 ? 5 : 9 * C / 64;   // 5, 9, 18, 36
+  static constexpr int GROUPS = (MTILES + NWG - 1) / NWG;
+  static constexpr int YS = GROUPS * NH;                    // the grid's y extent
+  static constexpr int REGION = PIX * SW;                   // a box of zb or gb
+  static constexpr int A = (C == 32 ? 2 : 1) * REGION;      // a warpgroup's zb
+  static constexpr int THREADS = NWG * 128 + 32;
+  static constexpr int WARPS = NWG * 4;
+  static_assert(REGION % 1024 == 0, "swizzle atoms stay aligned");
+};
+
+// A block walks work items blockIdx.x, + gridDim.x, ... (persistent: one
+// wave of resident blocks), its producer running ahead across items, and
+// sums S1, S2, dc over its items in a fixed order into one row of
+// partials. Item t is tile t / NH, N part t % NH: gridDim.x is a multiple
+// of NH, so a block keeps one part, channels [c_base, c_base + NC), and
+// blocks NH r .. NH r + NH - 1 share row r.
 // HALO (BW >= 64, BW + 2d <= 256): a K step is (ty, CB channels) and its A
 // box spans BW + 2d columns, so the three taps of a row of the stencil
 // read one box at row offsets (1 - tx) d: a descriptor may start on any
@@ -642,8 +301,8 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
                  __nv_bfloat16* __restrict__ zb, float* __restrict__ part, Geo geo, int d,
                  int act, int a_bytes, int stages) {
   using S = DgShape<C>;
+  constexpr int NC = S::NC, NH = S::NH, KC = S::KC;
   constexpr int TAPS = HALO ? 3 : 1;                 // taps a K step
-  constexpr int KC = C / S::CB;
   constexpr int KSTEPS = (9 / TAPS) * KC;
   const int a_room = HALO ? a_bytes : S::A;
   const int stage_bytes = a_room + TAPS * S::NB * S::B_REGION;
@@ -655,29 +314,32 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
   unsigned char* smem = align1024(dsmem);
   float* scr = reinterpret_cast<float*>(smem + stages * stage_bytes);
   __shared__ __align__(8) uint64_t full[4], empty[4];
-  __shared__ float sa[C], sb[C], smu[C], sinv[C];
-  __shared__ float red[S::WARPS][3][C];
+  __shared__ float sa[NC], sb[NC], smu[NC], sinv[NC];
+  __shared__ float red[S::WARPS][3][NC];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  for (int i = tid; i < C; i += S::THREADS) {
-    sa[i] = a[i];
-    sb[i] = b[i];
-    smu[i] = mean[i];
-    sinv[i] = invstd[i];
+  const int c_base = (blockIdx.x % NH) * NC;
+  const long long items = geo.tiles * NH;
+  for (int i = tid; i < NC; i += S::THREADS) {
+    sa[i] = a[c_base + i];
+    sb[i] = b[c_base + i];
+    smu[i] = mean[c_base + i];
+    sinv[i] = invstd[c_base + i];
   }
-  for (int i = tid; i < S::WARPS * 3 * C; i += S::THREADS) (&red[0][0][0])[i] = 0.0f;
+  for (int i = tid; i < S::WARPS * 3 * NC; i += S::THREADS) (&red[0][0][0])[i] = 0.0f;
   if (tid == 0) ring_init(full, empty, stages, S::WARPS);
   __syncthreads();
 
   if (warp == S::WARPS) {
-    // producer: K step ks of a tile = (tap, channels kc*CB of g): the box
-    // of gb at (h0 - ty*d, w0 - tx*d) and rows kc*CB.. of wT[tap]; with
-    // HALO (ty, kc): one box from column w0 - d and the three taps' wT
+    // producer: K step ks of an item = (tap, channels kc*CB of g): the box
+    // of gb at (h0 - ty*d, w0 - tx*d) and rows kc*CB.. of wT[tap], columns
+    // c_base..; with HALO (ty, kc): one box from column w0 - d and the
+    // three taps' wT
     if (lane == 0) {
       int gs = 0;
-      for (long long t = blockIdx.x; t < geo.tiles; t += gridDim.x) {
+      for (long long t = blockIdx.x; t < items; t += gridDim.x) {
         int n, h0, w0;
-        tile_origin(geo, t, n, h0, w0);
+        tile_origin(geo, t / NH, n, h0, w0);
         for (int ks = 0; ks < KSTEPS; ++ks, ++gs) {
           const int s = gs % stages;
           ring_acquire(full, empty, s, gs / stages, stage_tx);
@@ -689,14 +351,14 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
 #pragma unroll
               for (int nb = 0; nb < S::NB; ++nb)
                 sm90::tma_load_3d(st + a_room + (tx * S::NB + nb) * S::B_REGION, &map_w,
-                                  &full[s], nb * S::CB, kc * S::CB, step * 3 + tx);
+                                  &full[s], c_base + nb * S::CB, kc * S::CB, step * 3 + tx);
           } else {
             const int ty = step / 3 - 1, tx = step % 3 - 1;
             sm90::tma_load_4d(st, &map_g, &full[s], kc * S::CB, w0 - tx * d, h0 - ty * d, n);
 #pragma unroll
             for (int nb = 0; nb < S::NB; ++nb)
-              sm90::tma_load_3d(st + a_room + nb * S::B_REGION, &map_w, &full[s], nb * S::CB,
-                                kc * S::CB, step);
+              sm90::tma_load_3d(st + a_room + nb * S::B_REGION, &map_w, &full[s],
+                                c_base + nb * S::CB, kc * S::CB, step);
           }
         }
       }
@@ -711,12 +373,12 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
   const int hrow = ((wg * 64) >> geo.bw_log2) * (bw + 2 * d) + ((wg * 64) & (bw - 1));
   const int cq = 2 * (lane & 3);
   int gs = 0;
-  for (long long t = blockIdx.x; t < geo.tiles; t += gridDim.x) {
+  for (long long t = blockIdx.x; t < items; t += gridDim.x) {
     int n, h0, w0;
-    tile_origin(geo, t, n, h0, w0);
-    float acc[C / 2];
+    tile_origin(geo, t / NH, n, h0, w0);
+    float acc[NC / 2];
 #pragma unroll
-    for (int i = 0; i < C / 2; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.0f;
     for (int ks = 0; ks < KSTEPS; ++ks, ++gs) {
       const int s = gs % stages;
       sm90::mbar_wait(&full[s], (gs / stages) & 1);
@@ -733,7 +395,7 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
             const uint64_t da = sm90::desc(As + k * 32, 16, 8 * S::SW, S::LAYOUT);
             const uint64_t db = sm90::desc(Bs + tx * S::NB * S::B_REGION + k * 16 * S::SW,
                                            S::B_REGION, 8 * S::SW, S::LAYOUT);
-            sm90::wgmma<C, 0, 1>(acc, da, db);
+            sm90::wgmma<NC, 0, 1>(acc, da, db);
           }
         }
       } else {
@@ -742,7 +404,7 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
         for (int k = 0; k < S::CB / 16; ++k) {
           const uint64_t da = sm90::desc(As + k * 32, 16, 8 * S::SW, S::LAYOUT);
           const uint64_t db = sm90::desc(Bs + k * 16 * S::SW, S::B_REGION, 8 * S::SW, S::LAYOUT);
-          sm90::wgmma<C, 0, 1>(acc, da, db);
+          sm90::wgmma<NC, 0, 1>(acc, da, db);
         }
       }
       sm90::wgmma_commit();
@@ -752,10 +414,11 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
     sm90::wgmma_wait<0>();
     if (lane == 0) sm90::mbar_arrive(&empty[(gs - 1) % stages]);
 
-    if (C == 32) {
+    if constexpr (C == 32) {
       // epilogue from the accumulators (at C = 32 the scratch path's
-      // registers would cost resident blocks): this thread's rows r and r + 8 of
-      // the warpgroup's 64, channels 8j + cq + {0, 1}
+      // registers would cost resident blocks; NC = C, one part): this
+      // thread's rows r and r + 8 of the warpgroup's 64, channels 8j + cq +
+      // {0, 1}
       const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
       long long pix[2];
       bool ok[2];
@@ -767,7 +430,7 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
         pix[hh] = ((long long)n * geo.H + h) * geo.W + w;
       }
 #pragma unroll
-      for (int j = 0; j < C / 8; ++j) {
+      for (int j = 0; j < NC / 8; ++j) {
         const int c = 8 * j + cq;
         float s1[2] = {0.0f, 0.0f}, s2[2] = {0.0f, 0.0f}, sg[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -813,20 +476,20 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
         }
       }
     } else {
-      // epilogue through shared memory: dz to an f32 tile (pixels x C),
+      // epilogue through shared memory: dz to an f32 tile (pixels x NC),
       // then each thread takes 8 channels of a pixel (16- or 32-byte
-      // loads and stores); the first barrier: the last tile's reads of
+      // loads and stores); the first barrier: the last item's reads of
       // the scratch are done
       consumers_sync<S::CONSUMERS>();
       const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
-      for (int j = 0; j < C / 8; ++j)
+      for (int j = 0; j < NC / 8; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           *reinterpret_cast<float2*>(&scr[(r0 + 8 * hh) * S::SCR_LD + 8 * j + cq]) =
               make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
       consumers_sync<S::CONSUMERS>();
-      constexpr int CPR = C / 8;                // 8-channel chunks a pixel
+      constexpr int CPR = NC / 8;               // 8-channel chunks a pixel
       constexpr int RPP = S::CONSUMERS / CPR;   // pixels a pass
       const int c8 = (tid % CPR) * 8;
       float s1[8], s2[8], sg[8];
@@ -835,7 +498,7 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
       for (int r = tid / CPR; r < S::PIX; r += RPP) {
         const int h = h0 + (r >> geo.bw_log2), w = w0 + (r & (bw - 1));
         if (h >= geo.H || w >= geo.W) continue;
-        const long long off = (((long long)n * geo.H + h) * geo.W + w) * C + c8;
+        const long long off = (((long long)n * geo.H + h) * geo.W + w) * C + c_base + c8;
         float xv[8], gv[8], out[8], zv[8];
         Io<T>::load8(x + off, xv);
         Io<T>::load8(g + off, gv);
@@ -880,31 +543,31 @@ tma_dgrad_kernel(const __grid_constant__ CUtensorMap map_g, const __grid_constan
     }
   }
   consumers_sync<S::CONSUMERS>();
-  for (int i = tid; i < 3 * C; i += S::CONSUMERS) {
-    const int k = i / C, c = i % C;
+  float* row = part + (long long)(blockIdx.x / NH) * 3 * C + c_base;
+  for (int i = tid; i < 3 * NC; i += S::CONSUMERS) {
+    const int k = i / NC, c = i % NC;
     float t = red[0][k][c];
 #pragma unroll
     for (int w = 1; w < S::WARPS; ++w) t += red[w][k][c];
-    part[(long long)blockIdx.x * 3 * C + i] = t;
+    row[k * C + c] = t;
   }
 }
 
 // The tap and first input channel of rows [32 q, 32 q + 32) (C = 32) or
-// of all 64 rows (q = 0) of M tile mt. Block g of the grid's y holds M
-// tiles 3g..3g+2 at C >= 64: one row ty of the stencil (and at C = 128 one
-// half of the channels). Tap 9 (the pair of tap 8 at C = 32) does not
-// exist.
+// of all 64 rows (q = 0) of M tile mt. Group g of the grid's y holds M
+// tiles 3g..3g+2 at C >= 64: the three taps of stencil row g / (C / 64)
+// at the 64 channels from 64 (g % (C / 64)), one quarter of them at C =
+// 256. Tap 9 (the pair of tap 8 at C = 32) does not exist.
 template <int C>
 __device__ __forceinline__ void mtile_tap(int mt, int q, int& tap, int& c0) {
-  if (C == 32) {
+  if constexpr (C == 32) {
     tap = 2 * mt + q;
     c0 = 0;
-  } else if (C == 64) {
-    tap = mt;
-    c0 = 0;
   } else {
-    tap = (mt / 6) * 3 + mt % 3;
-    c0 = ((mt / 3) & 1) * 64;
+    constexpr int Q = C / 64;  // 64-channel blocks across C
+    const int grp = mt / 3;
+    tap = (grp / Q) * 3 + mt % 3;
+    c0 = (grp % Q) * 64;
   }
 }
 
@@ -913,16 +576,19 @@ __device__ __forceinline__ void mtile_tap(int mt, int q, int& tap, int& c0) {
 // from column w0 - d; tap (ty, tx) starts its descriptor (1 + tx) d rows
 // into it. At C = 32 the two taps of an M tile sit one LBO apart, the
 // lower address first. Else each warpgroup gets its taps' shifted boxes.
-// Dynamic shared memory: `stages` stages of stage_bytes: gb's boxes, then
-// the zb room (h_room a halo box).
+// blockIdx.y = N part x GROUPS + group: the part's NC output channels of
+// gb, from o_base. Dynamic shared memory: `stages` stages of stage_bytes:
+// gb's boxes, then the zb room (h_room a halo box).
 template <int C, int HALO>
 __global__ void __launch_bounds__(WgShape<C>::THREADS, 1)
 tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constant__ CUtensorMap map_g,
                  float* __restrict__ part, Geo geo, int d, int tiles_per_chunk, int stages,
                  int h_room) {
   using S = WgShape<C>;
-  constexpr int NWG = S::NWG;
+  constexpr int NWG = S::NWG, NC = S::NC;
   constexpr int HB = C == 32 ? 3 : 1;   // halo boxes a stage
+  const int group = blockIdx.y % S::GROUPS;
+  const int o_base = (blockIdx.y / S::GROUPS) * NC;
   extern __shared__ unsigned char dsmem[];
   unsigned char* smem = align1024(dsmem);
   __shared__ __align__(8) uint64_t full[4], empty[4];
@@ -938,7 +604,7 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
   __syncthreads();
 
   if (warp == S::WARPS) {
-    // producer: per tile, gb's boxes (all C) and the zb boxes; without
+    // producer: per tile, gb's boxes (the part's NC) and the zb boxes; without
     // HALO a warpgroup past the last M tile repeats the last (and stores
     // nothing) and tap 9 is not loaded
     if (lane == 0) {
@@ -949,7 +615,7 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
         for (int wg = 0; wg < NWG; ++wg)
           for (int q = 0; q < (C == 32 ? 2 : 1); ++q) {
             int tap, c0;
-            mtile_tap<C>(min((int)blockIdx.y * NWG + wg, S::MTILES - 1), q, tap, c0);
+            mtile_tap<C>(min(group * NWG + wg, S::MTILES - 1), q, tap, c0);
             if (tap <= 8) bytes += S::REGION;
           }
       }
@@ -962,18 +628,19 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
         tile_origin(geo, t_begin + i, n, h0, w0);
 #pragma unroll
         for (int nb = 0; nb < S::NB; ++nb)
-          sm90::tma_load_4d(st + nb * S::REGION, &map_g, &full[s], nb * S::CB, w0, h0, n);
+          sm90::tma_load_4d(st + nb * S::REGION, &map_g, &full[s], o_base + nb * S::CB, w0, h0,
+                            n);
         if (HALO) {
           for (int hb = 0; hb < HB; ++hb) {
             int tap, c0;  // the first tap of the block's row (C >= 64), or row hb
-            mtile_tap<C>(blockIdx.y * NWG, 0, tap, c0);
+            mtile_tap<C>(group * NWG, 0, tap, c0);
             const int ty = (C == 32 ? hb : tap / 3) - 1;
             sm90::tma_load_4d(za + hb * h_room, &map_z, &full[s], c0, w0 - d, h0 + ty * d, n);
           }
         } else {
 #pragma unroll
           for (int wg = 0; wg < NWG; ++wg) {
-            const int mt = min((int)blockIdx.y * NWG + wg, S::MTILES - 1);
+            const int mt = min(group * NWG + wg, S::MTILES - 1);
 #pragma unroll
             for (int q = 0; q < (C == 32 ? 2 : 1); ++q) {
               int tap, c0;
@@ -993,7 +660,7 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
   // this warpgroup's M tile: the offset of its A operand in a stage, the
   // LBO between its two 32-row halves (C = 32) and the tap of each half
   const int wg = warp >> 2;
-  const int mt_raw = blockIdx.y * NWG + wg;
+  const int mt_raw = group * NWG + wg;
   const int mt = min(mt_raw, S::MTILES - 1);
   int a_off, lbo, half_tap[2];
   {
@@ -1018,9 +685,9 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
       half_tap[1] = s0 <= s1 ? t1 : t0;
     }
   }
-  float acc[C / 2];
+  float acc[NC / 2];
 #pragma unroll
-  for (int i = 0; i < C / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.0f;
   for (int i = 0; i < steps; ++i) {
     const int s = i % stages;
     sm90::mbar_wait(&full[s], (i / stages) & 1);
@@ -1032,7 +699,7 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
     for (int k = 0; k < S::PIX / 16; ++k) {
       const uint64_t da = sm90::desc(As + k * 16 * S::SW, lbo, 8 * S::SW, S::LAYOUT);
       const uint64_t db = sm90::desc(Bs + k * 16 * S::SW, S::REGION, 8 * S::SW, S::LAYOUT);
-      sm90::wgmma<C, 1, 1>(acc, da, db);
+      sm90::wgmma<NC, 1, 1>(acc, da, db);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
@@ -1041,7 +708,7 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
   sm90::wgmma_wait<0>();
 
   // this warpgroup's tile of the chunk's partial dW: rows r, r + 8 (of 64),
-  // columns o = 8j + cq + {0, 1}
+  // columns o = o_base + 8j + cq + {0, 1}
   if (mt_raw >= S::MTILES) return;
   const int cq = 2 * (lane & 3);
   float* out = part + (long long)blockIdx.x * 9 * C * C;
@@ -1053,15 +720,15 @@ tma_wgrad_kernel(const __grid_constant__ CUtensorMap map_z, const __grid_constan
     if (C == 32) tap = half_tap[r >> 5];
     if (tap > 8) continue;
     const int c = c0 + (C == 32 ? (r & 31) : r);
-    float* row = out + ((long long)tap * C + c) * C;
+    float* row = out + ((long long)tap * C + c) * C + o_base;
 #pragma unroll
-    for (int j = 0; j < C / 8; ++j)
+    for (int j = 0; j < NC / 8; ++j)
       *reinterpret_cast<float2*>(row + 8 * j + cq) =
           make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
 
-// ------------------------------------------------------ K2's host side
+// ------------------------------------------------------------ host side
 
 constexpr int SMEM_LIMIT = 211 * 1024;  // 227 KB less the static shared memory
 
@@ -1070,20 +737,23 @@ struct Plan {
   long long per, chunks;  // wgrad: tiles a chunk, chunks
 };
 
+// wgrad's chunks: two waves of blocks at C <= 128; one at C = 256, where
+// a chunk's dW partial (9 C^2 floats, 2.36 MB) is written and summed once
 template <int C>
 Plan make_plan(int N, int H, int W) {
   using S = WgShape<C>;
   Plan p;
   p.dg = make_geo(N, H, W, 128);
   p.wg = make_geo(N, H, W, S::PIX);
-  const long long target = (WG_TARGET_BLOCKS + S::GROUPS - 1) / S::GROUPS;
+  const long long target = S::NH > 1 ? SMS / S::YS : (WG_TARGET_BLOCKS + S::YS - 1) / S::YS;
   p.per = (p.wg.tiles + target - 1) / target;
   p.chunks = (p.wg.tiles + p.per - 1) / p.per;
   return p;
 }
 
-// K2's workspace in floats: zb (N, H, W, C) bf16, then the per-tile
-// [S1, S2, dc] partials, then the per-chunk dW partials.
+// The workspace in floats: zb (N, H, W, C) bf16, then the [S1, S2, dc]
+// partials (a row per dgrad block, fewer than the tiles), then the
+// per-chunk dW partials.
 template <int C>
 long long tma_workspace(int N, int H, int W) {
   const Plan p = make_plan<C>(N, H, W);
@@ -1099,8 +769,8 @@ int dgrad_smem(int stages, int halo, int a_bytes) {
   return stages * stage + (C == 32 ? 0 : S::SCRATCH) + 1024;
 }
 
-// Launches dgrad, one wave of resident blocks; *rows = its blocks (the
-// rows of S1/S2/dc partials).
+// Launches dgrad, one wave of resident blocks, a multiple of the N parts;
+// *rows = its rows of S1/S2/dc partials (blocks / parts).
 template <typename T, int C, int HALO>
 cudaError_t launch_dgrad(const CUtensorMap& map_g, const CUtensorMap& map_w, const void* x,
                          const void* g, const float* a, const float* b, const float* mean,
@@ -1113,8 +783,9 @@ cudaError_t launch_dgrad(const CUtensorMap& map_g, const CUtensorMap& map_w, con
   long long grid = 0;
   cudaError_t err = sm90::wave_blocks(kernel, S::THREADS, smem, SMEM_LIMIT, &grid);
   if (err != cudaSuccess) return err;
-  if (grid > geo.tiles) grid = geo.tiles;
-  *rows = grid;
+  if (grid > geo.tiles * S::NH) grid = geo.tiles * S::NH;
+  grid -= grid % S::NH;  // at least NH: a wave holds more blocks
+  *rows = grid / S::NH;
   kernel<<<(unsigned)grid, S::THREADS, smem, stream>>>(
       map_g, map_w, static_cast<const T*>(x), static_cast<const T*>(g), a, b, mean, invstd,
       static_cast<T*>(dx), zb, part, geo, d, act, a_bytes, stages);
@@ -1130,7 +801,7 @@ cudaError_t launch_tma(const void* x, const void* g, const float* a, const float
   using WS = WgShape<C>;
   const Plan p = make_plan<C>(N, H, W);
   __nv_bfloat16* zb = reinterpret_cast<__nv_bfloat16*>(work);
-  float* vec_part = work + (long long)N * H * W * C / 2;  // [dgrad tiles][3][C]
+  float* vec_part = work + (long long)N * H * W * C / 2;  // [dgrad rows][3][C]
   float* dw_part = vec_part + p.dg.tiles * 3 * C;          // [chunks][9][C][C]
   // TMA reads bf16: g itself, or bf16(g) the caller put past the workspace
   const void* gb = sizeof(T) == 2 ? g : static_cast<const void*>(work + tma_workspace<C>(N, H, W));
@@ -1183,7 +854,7 @@ cudaError_t launch_tma(const void* x, const void* g, const float* a, const float
     if (err != cudaSuccess) return err;
     wg_attr_dev[whalo] = dev;
   }
-  wkernel<<<dim3((unsigned)p.chunks, WS::GROUPS), WS::THREADS, wsmem, stream>>>(
+  wkernel<<<dim3((unsigned)p.chunks, WS::YS), WS::THREADS, wsmem, stream>>>(
       map_z, map_gw, dw_part, p.wg, d, (int)p.per, wstages, h_room);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1194,76 +865,14 @@ cudaError_t launch_tma(const void* x, const void* g, const float* a, const float
   if (err != cudaSuccess) return err;
   ++*launched;
   // dW's partials: a float4 column a thread where the columns fill the
-  // card (C = 128), else reduce_rows' 32 x 32 blocks (more threads a
+  // card (C >= 128), else reduce_rows' 32 x 32 blocks (more threads a
   // column over the chunks' rows)
-  if (9 * C * C / 4 >= 132 * 256)
+  if (9 * C * C / 4 >= SMS * 256)
     reduce_cols<<<(9 * C * C / 4 + 255) / 256, 256, 0, stream>>>(
         reinterpret_cast<const float4*>(dw_part), p.chunks, 9 * C * C / 4,
         reinterpret_cast<float4*>(dw));
   else
     reduce_rows<<<(9 * C * C + 31) / 32, rblock, 0, stream>>>(dw_part, p.chunks, 9 * C * C, dw);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) ++*launched;
-  return err;
-}
-
-// ------------------------------------------------------ K9's host side
-
-long long dgrad_blocks(int N, int H, int W) {
-  return ((long long)N * H * W + BM - 1) / BM;
-}
-
-// WgradShape<C>::BLOCK_TILES at run time
-int wgrad_tiles(int C) {
-  const int wbm = C < 128 ? C : 128, wbn = C < 64 ? C : 64;
-  return (C / wbm) * (C / wbn);
-}
-
-long long wgrad_chunk_pixels(int N, int H, int W, int C) {
-  const long long M = (long long)N * H * W;
-  const int tiles = wgrad_tiles(C);
-  long long chunks = (WG_CHUNK_TARGET + 9 * tiles - 1) / (9 * tiles);
-  long long per = (M + chunks - 1) / chunks;
-  per = (per + 255) / 256 * 256;  // whole staging steps
-  return per;
-}
-
-long long wgrad_chunks(int N, int H, int W, int C) {
-  const long long M = (long long)N * H * W;
-  const long long per = wgrad_chunk_pixels(N, H, W, C);
-  return (M + per - 1) / per;
-}
-
-template <typename T, int C>
-cudaError_t launch(const void* x, const void* g, const float* a, const float* b,
-                   const float* mean, const float* invstd, const __nv_bfloat16* wT,
-                   void* dx, float* dw, float* vec, float* work, int N, int H, int W,
-                   int d, int act, int* launched, cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  const long long blocks = dgrad_blocks(N, H, W);
-  const long long chunks = wgrad_chunks(N, H, W, C);
-  const long long per = wgrad_chunk_pixels(N, H, W, C);
-  float* vec_part = work;                       // [blocks][3][C]
-  float* dw_part = work + blocks * 3 * C;       // [chunks][9][C][C]
-  static_assert(WgradShape<C>::BLOCK_TILES > 0 && DgradShape<C>::TILES > 0, "tiles");
-
-  dgrad_kernel<T, C><<<dim3((unsigned)blocks, DgradShape<C>::TILES), THREADS, 0, stream>>>(
-      xt, gt, a, b, mean, invstd, wT, static_cast<T*>(dx), vec_part, N, H, W, d, act);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ++*launched;
-  wgrad_kernel<T, C><<<dim3((unsigned)chunks, 9, WgradShape<C>::BLOCK_TILES), THREADS, 0,
-                        stream>>>(xt, gt, a, b, dw_part, N, H, W, d, act, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ++*launched;
-  const dim3 rblock(32, 32);
-  reduce_rows<<<(3 * C + 31) / 32, rblock, 0, stream>>>(vec_part, blocks, 3 * C, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ++*launched;
-  reduce_rows<<<(9 * C * C + 31) / 32, rblock, 0, stream>>>(dw_part, chunks, 9 * C * C, dw);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return err;
@@ -1285,8 +894,8 @@ cudaError_t dispatch(int C, const void* x, const void* g, const float* a, const 
       return launch_tma<T, 128>(x, g, a, b, mean, invstd, wT, dx, dw, vec, work, N, H, W, d,
                                 act, launched, s);
     case 256:
-      return launch<T, 256>(x, g, a, b, mean, invstd, wT, dx, dw, vec, work, N, H, W, d, act,
-                            launched, s);
+      return launch_tma<T, 256>(x, g, a, b, mean, invstd, wT, dx, dw, vec, work, N, H, W, d,
+                                act, launched, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1295,21 +904,22 @@ cudaError_t dispatch(int C, const void* x, const void* g, const float* a, const 
 }  // namespace
 
 // Floats of device workspace convseg_backward needs for this shape (with
-// f32 inputs at C <= 128 the caller appends N*H*W*C/2 floats holding
-// bf16(g), (N, H, W, C)).
+// f32 inputs the caller appends N*H*W*C/2 floats holding bf16(g), (N, H,
+// W, C)); 0 for a channel count it does not take.
 extern "C" long long convseg_backward_workspace(int N, int H, int W, int C) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0) return 0;
+  if (N <= 0 || H <= 0 || W <= 0) return 0;
   if (C == 32) return tma_workspace<32>(N, H, W);
   if (C == 64) return tma_workspace<64>(N, H, W);
   if (C == 128) return tma_workspace<128>(N, H, W);
-  return dgrad_blocks(N, H, W) * 3 * C + wgrad_chunks(N, H, W, C) * 9LL * C * C;
+  if (C == 256) return tma_workspace<256>(N, H, W);
+  return 0;
 }
 
 // x, g, dx: (N, H, W, C) contiguous, bf16 (x_is_bf16 = 1) or f32, 16-byte
 // aligned; a, b, mean, invstd: (C,) f32; wT: (3, 3, C, C) bf16 with
 // wT[t][o][c] = w[t][c][o]; dw: (3, 3, C, C) f32 HWIO; vec: (3, C) f32 =
 // [S1, S2, dc]; work: convseg_backward_workspace(N, H, W, C) floats, 16-byte
-// aligned, followed at C <= 128 with f32 inputs by bf16(g) (N, H, W, C).
+// aligned, followed with f32 inputs by bf16(g) (N, H, W, C).
 // C in {32, 64, 128, 256}; act 1 for z = relu(x*a + b), 0 for z = x*a + b.
 // Adds the number of kernels it launched to *launched (four when all go)
 // and returns the first cudaError_t of the launches.

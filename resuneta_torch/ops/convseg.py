@@ -19,8 +19,9 @@ the card it is two TMA-fed wgmma kernels (dgrad, whose epilogue also writes
 bf16 z to a workspace, then wgrad) and two fixed-order sums; TMA reads
 bf16, so with f32 inputs the wrapper puts bf16(g) past the workspace.
 K9 is the same backward at C = 256 (the reference's opt-in wide tier,
-RESUNETA_CONVSEG_BWD_WIDE=1), one CUDA source with K2. Both take act =
-False too (z = x*a + b, no ReLU mask), as _bwd_kernel's `act` does.
+RESUNETA_CONVSEG_BWD_WIDE=1): the same kernels, each work item taking
+one of two 128-channel halves of N (`k2_design`). Both take act = False
+too (z = x*a + b, no ReLU mask), as _bwd_kernel's `act` does.
 
 The train segment comes in the reference's two fused modes
 (RESUNETA_FUSED_TRAIN_SEGMENT, resuneta.py:146-155):
@@ -248,6 +249,16 @@ def segment_bwd_reference(x, g, a, b, mean, invstd, w, *, dilation,
     return (dz * a).to(x.dtype), dw.permute(2, 3, 1, 0), vec
 
 
+def k2_design(C):
+    """Which CUDA kernels a K2 / K9 call with C channels launches:
+    "tma_wgmma" (TMA-fed wgmma dgrad and wgrad, at every C the backward
+    takes; at C = 256 in two 128-channel halves of N)."""
+    if C not in BWD_CHANNELS:
+        raise ValueError(f"C={C}: the segment backward takes C in "
+                         f"{BWD_CHANNELS}")
+    return "tma_wgmma"
+
+
 def _check_bwd(x, g, a, b, mean, invstd, w, dilation):
     if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be (N, H, W, C) bf16 or f32, got "
@@ -313,10 +324,9 @@ def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation, act=True):
     vec = torch.empty((3, C), dtype=torch.float32, device=x.device)
     ws_floats, fn = _bwd_kernel()
     ws = ws_floats(N, H, W, C)
-    # K2 reads g through TMA in bf16: with f32 inputs bf16(g) goes past the
-    # kernel's own workspace (zb, the partials)
-    gb_floats = N * H * W * C // 2 if (C <= 128 and
-                                       x.dtype == torch.float32) else 0
+    # the kernels read g through TMA in bf16: with f32 inputs bf16(g) goes
+    # past their own workspace (zb, the partials)
+    gb_floats = N * H * W * C // 2 if x.dtype == torch.float32 else 0
     work = torch.empty(ws + gb_floats, dtype=torch.float32, device=x.device)
     if gb_floats:
         work[ws:].view(torch.bfloat16).view(g.shape).copy_(g)

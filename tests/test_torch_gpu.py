@@ -296,7 +296,7 @@ def test_k2_without_act_matches_plain(cuda, C, d, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("C", [32, 64, 128, 256])
 def test_k2_is_deterministic(cuda, C, dtype):
     """Two calls on the same inputs give bit-identical dx, dW and [S1, S2,
     dc]: no atomics, every sum in a fixed order."""
@@ -316,12 +316,19 @@ def test_k2_is_deterministic(cuda, C, dtype):
                                        (2, 9, 33, 128, 4),    # ragged tiles
                                        (2, 8, 8, 32, 8),      # d >= H
                                        (1, 12, 20, 64, 31),   # d >= H, W
-                                       (1, 16, 16, 128, 16)])
+                                       (1, 16, 16, 128, 16),
+                                       (3, 5, 7, 256, 1),     # K9: H*W < a tile
+                                       (2, 9, 33, 256, 4),    # W % BW != 0
+                                       (1, 3, 80, 256, 2),    # 1 x 128 overhang
+                                       (1, 12, 20, 256, 31),  # d >= H, W
+                                       (1, 4, 64, 256, 100),  # BW + 2d > 256
+                                       (1, 2, 128, 256, 70)])
 def test_k2_edge_shapes_match_plain(cuda, N, H, W, C, d, act, dtype):
     """Pixel counts that are no multiple of the 128-pixel tile, an image
     smaller than one tile, and dilations past the image (only the centre
     tap sees data) against the plain version at _k2_close's limits; still
-    4 launches a call."""
+    4 launches a call. At C = 256 (K9) also tiles that overhang W and
+    halo boxes wider than TMA's 256 columns (a box a tap at W >= 64)."""
     args = _k2_args(N, H, W, C, d, dtype, cuda)
     launches = convseg.BWD_LAUNCHES
     got = convseg.segment_bwd(*args, dilation=d, act=act)

@@ -237,3 +237,186 @@ def test_bwdonly_segment_matches_the_reference(C, d):
     assert (convseg.CALLS, convseg.BWD_CALLS) == (calls, bwd_calls + 1)
     _assert_close(got[:1], want[:1], ["y"], rtol=0, atol_of_max=1e-5)
     _assert_close(got[1:], want[1:], NAMES)
+
+
+# ------------------------- K9: the C = 256 tiling of convseg_bwd.cu, emulated
+
+SMS, SMEM_LIMIT = 132, 211 * 1024
+
+
+def _geo(H, W, pix):
+    """sm90::make_geo: BW = the power of two >= W up to pix, BH = pix /
+    BW; (bw_log2, BH, tiles_h, tiles_w)."""
+    bw_log2 = 0
+    while (1 << bw_log2) < W and (2 << bw_log2) <= pix:
+        bw_log2 += 1
+    bh = pix >> bw_log2
+    return bw_log2, bh, -(-H // bh), -(-W // (1 << bw_log2))
+
+
+def _mtile_tap(C, mt):
+    """convseg_bwd.cu mtile_tap at C >= 64: group mt // 3 holds the three
+    taps of one stencil row at one block of 64 input channels."""
+    grp, q = mt // 3, C // 64
+    return (grp // q) * 3 + mt % 3, (grp % q) * 64
+
+
+def _k9_emulation(x, g, a, b, mean, invstd, w, d, act):
+    """convseg_bwd.cu at C = 256 in plain torch, in f32: tma_dgrad_kernel's
+    work items (128-pixel tile, one 128-channel half of N) on persistent
+    blocks that keep one half (the grid a multiple of 2, blocks 2r and
+    2r + 1 sharing row r of the S1/S2/dc partials), each K step one gb box
+    read with TMA's zero fill: with the halo (BW >= 64, BW + 2d <= 256 and
+    two stages in shared memory) BW + 2d columns wide, the three taps of a
+    stencil row at row offsets (2 - tx) d; else a box per tap. Then
+    tma_wgrad_kernel: blocks (pixel chunk, group of three M tiles, N half),
+    M tile -> (tap, c0) as mtile_tap, zb's box of a stencil row shared by
+    its three taps at offsets (1 + tx) d (halo: 1 x 64 tiles) or a box per
+    tap, one partial dW per chunk; the partials summed in chunk order.
+    Also checks that every partial is written exactly once."""
+    N, H, W, C = x.shape
+    NC, NH, CB = 128, 2, 64
+    wT = w.to(torch.bfloat16).float().permute(0, 1, 3, 2).reshape(9, C, C)
+    gb = g.to(torch.bfloat16).float()
+    P = 128 + 2 * d   # zero border: every box lies inside the padded tensor
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, 0, P, P, P, P))
+
+    def box(tp, n, h, w_, rows, cols, c0, cn):
+        return tp[n, h + P:h + P + rows, w_ + P:w_ + P + cols,
+                  c0:c0 + cn].reshape(rows * cols, cn)
+
+    # dgrad
+    gp = padded(gb)
+    PIX = 128
+    bwl, bh, th, tw = _geo(H, W, PIX)
+    bw = 1 << bwl
+    tiles = N * th * tw
+    a_bytes = -(-(bw + 2 * d) * bh * CB * 2 // 1024) * 1024
+    smem2 = 2 * (a_bytes + 3 * 2 * CB * 128) + PIX * (NC + 8) * 4 + 1024
+    halo = bw >= 64 and bw + 2 * d <= 256 and smem2 <= SMEM_LIMIT
+    grid = min(SMS, tiles * NH)
+    grid -= grid % NH
+    zp = (x.double() * a.double() + b.double()).float()
+    xhat = (x.float() - mean) * invstd
+    dx = torch.full_like(x, float("nan"))
+    zb = torch.zeros(N, H, W, C)
+    part = torch.full((grid // NH, 3, C), float("nan"))
+    for blk in range(grid):
+        half = blk % NH
+        cs = slice(half * NC, half * NC + NC)
+        red = torch.zeros(3, NC)
+        for t in range(blk, tiles * NH, grid):
+            assert t % NH == half
+            n, r = divmod(t // NH, th * tw)
+            h0, w0 = (r // tw) * bh, (r % tw) * bw
+            acc = torch.zeros(PIX, NC)
+            for ty in range(3):
+                for kc in range(C // CB):
+                    if halo:
+                        A = box(gp, n, h0 - (ty - 1) * d, w0 - d, bh,
+                                bw + 2 * d, kc * CB, CB)
+                        for q in range(PIX // 64):   # the two warpgroups
+                            hrow = ((q * 64) >> bwl) * (bw + 2 * d) + \
+                                ((q * 64) & (bw - 1))
+                            for tx in range(3):
+                                s = hrow + (2 - tx) * d
+                                acc[64 * q:64 * q + 64] += A[s:s + 64] @ \
+                                    wT[ty * 3 + tx, kc * CB:kc * CB + CB, cs]
+                    else:
+                        for tx in range(3):
+                            A = box(gp, n, h0 - (ty - 1) * d,
+                                    w0 - (tx - 1) * d, bh, bw, kc * CB, CB)
+                            acc += A @ wT[ty * 3 + tx,
+                                          kc * CB:kc * CB + CB, cs]
+            p = torch.arange(PIX)
+            hh, ww = h0 + (p >> bwl), w0 + (p & (bw - 1))
+            keep = (hh < H) & (ww < W)
+            hh, ww, dz = hh[keep], ww[keep], acc[keep]
+            z = zp[n, hh, ww, cs]
+            if act:
+                dz = torch.where(z > 0, dz, torch.zeros(()))
+                z = torch.relu(z)
+            assert torch.isnan(dx[n, hh, ww, cs]).all()
+            dx[n, hh, ww, cs] = (dz * a[cs]).to(x.dtype)
+            zb[n, hh, ww, cs] = z.to(torch.bfloat16).float()
+            red += torch.stack([dz.sum(0), (dz * xhat[n, hh, ww, cs]).sum(0),
+                                g[n, hh, ww, cs].float().sum(0)])
+        assert torch.isnan(part[blk // NH, :, cs]).all()
+        part[blk // NH, :, cs] = red
+    vec = part.sum(0)
+
+    # wgrad
+    zpad = padded(zb)
+    bwl, bh, th, tw = _geo(H, W, 64)
+    bw = 1 << bwl
+    tiles = N * th * tw
+    whalo = bw == 64 and 64 + 2 * d <= 256
+    groups = 36 // 3
+    target = SMS // (groups * NH)
+    per = -(-tiles // target)
+    chunks = -(-tiles // per)
+    dwp = torch.full((chunks, 9, C, C), float("nan"))
+    for ch in range(chunks):
+        for y in range(groups * NH):
+            group, o_base = y % groups, (y // groups) * NC
+            for wg in range(3):
+                tap, c0 = _mtile_tap(C, group * 3 + wg)
+                ty, tx = tap // 3 - 1, tap % 3 - 1
+                acc = torch.zeros(64, NC)
+                for t in range(ch * per, min(ch * per + per, tiles)):
+                    n, r = divmod(t, th * tw)
+                    h0, w0 = (r // tw) * bh, (r % tw) * bw
+                    B = box(gp, n, h0, w0, bh, bw, o_base, NC)
+                    if whalo:
+                        Z = box(zpad, n, h0 + ty * d, w0 - d, 1, 64 + 2 * d,
+                                c0, 64)
+                        A = Z[(tx + 1) * d:(tx + 1) * d + 64]
+                    else:
+                        A = box(zpad, n, h0 + ty * d, w0 + tx * d, bh, bw,
+                                c0, 64)
+                    acc += A.T @ B
+                blk = dwp[ch, tap, c0:c0 + 64, o_base:o_base + NC]
+                assert torch.isnan(blk).all()
+                blk.copy_(acc)
+    dw = dwp[0].clone()
+    for ch in range(1, chunks):
+        dw += dwp[ch]
+    return dx, dw.reshape(3, 3, C, C), vec
+
+
+@pytest.mark.parametrize("N,H,W,d", [
+    (1, 16, 32, 1),     # 4 x 32 dgrad tiles, 2 x 32 wgrad tiles: no halo
+    (1, 16, 32, 15),
+    (1, 64, 64, 1),     # 2 x 64 tiles: dgrad's and wgrad's halo boxes
+    (1, 64, 64, 15),    # dgrad: the halo's two stages overflow, a box a tap
+    (2, 3, 80, 3),      # 1 x 128 tiles overhanging W by 48, two images
+    (1, 2, 128, 70),    # BW + 2d > 256: a box a tap at W >= 64
+])
+def test_k9_tiling_emulation_matches_plain(N, H, W, d):
+    """K9's work items, halo tap offsets, M tile -> (tap, c0) map and
+    chunked dW partials, emulated in torch, against segment_bwd_reference
+    in f32. Only the order of the f32 sums differs (the products of bf16
+    values are exact in f32): dx, dW and [S1, S2, dc] within 1e-4 of
+    their largest magnitude, the card tests' limits (_k2_close)."""
+    C = 256
+    x, g, gamma, beta, mean, var, w, _ = (
+        torch.from_numpy(v) for v in _inputs(N, H, W, C, 30 * W + d))
+    a, b, invstd = convseg.segment_affine(gamma, beta, mean, var)
+    for act in (True, False):
+        got = _k9_emulation(x, g, a, b, mean, invstd, w, d, act)
+        want = convseg.segment_bwd_reference(x, g, a, b, mean, invstd, w,
+                                             dilation=d, act=act)
+        for gt, wt in zip(got, want):
+            torch.testing.assert_close(gt, wt, rtol=0,
+                                       atol=1e-4 * wt.abs().max().item())
+
+
+def test_k2_design_is_the_tma_kernels_at_every_c():
+    """K2 and K9 run TMA-fed wgmma kernels at every channel count the
+    backward takes (chip_smoke's k2 rows report it); others raise."""
+    assert [convseg.k2_design(C) for C in convseg.BWD_CHANNELS] == \
+        ["tma_wgmma"] * 4
+    with pytest.raises(ValueError):
+        convseg.k2_design(512)

@@ -27,8 +27,8 @@ routing and modes, the host wall time per step (without the profiler,
 and under it), the peak device memory, the device busy time per step (sum
 of kernel times, under the profiler), the busy share, the time of each of
 the port's kernels (K1 tma_fwd_kernel, and the WMMA convseg_kernel where
-C = 512 or C != Cout, K2 dgrad/wgrad at C <= 128, K9
-dgrad/wgrad at C = 256, their reduce_rows, K3 k3_* (bf16) and densemm_*
+C = 512 or C != Cout, K2 dgrad/wgrad at C <= 128, K9 dgrad/wgrad at C =
+256, their reduce_rows and reduce_cols, K3 k3_* (bf16) and densemm_*
 (f32, and the fixed-order sum of the bf16 wgrad), K4 poolconv_*, the
 EDT's jfa_pass and its seeds and distances (K5 and K7 alike), and
 canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
@@ -40,6 +40,7 @@ time with their input shapes, and the host operators by self CPU time
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -53,9 +54,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _k2(name, wide):
     # K3's and K4's kernels carry K2's names after their own prefix; K9 is
-    # K2's template at C = 256
+    # K2's template at C = 256 (tma_dgrad_kernel<T, 256, HALO>,
+    # tma_wgrad_kernel<256, HALO>)
     return lambda k: name in k and "densemm" not in k and \
-        "poolconv" not in k and "k3_" not in k and (", 256>" in k) == wide
+        "poolconv" not in k and "k3_" not in k and \
+        bool(re.search(r"[<,] ?256[,>]", k)) == wide
 
 
 GROUPS = {
@@ -65,7 +68,8 @@ GROUPS = {
     "K2 wgrad_kernel": _k2("wgrad_kernel", False),
     "K9 dgrad_kernel": _k2("dgrad_kernel", True),
     "K9 wgrad_kernel": _k2("wgrad_kernel", True),
-    "K2/K9 reduce_rows": lambda k: "reduce_rows" in k,
+    "K2/K9 reduce_rows + reduce_cols": lambda k: "reduce_rows" in k or
+    "reduce_cols" in k,
     "K3 k3_fwd_kernel": lambda k: "k3_fwd_kernel" in k,
     "K3 k3_rowsum_kernel": lambda k: "k3_rowsum_kernel" in k,
     "K3 k3_dgrad_kernel": lambda k: "k3_dgrad_kernel" in k,
