@@ -46,29 +46,36 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             beside the bound, the plain version and the library calls: a
             cuDNN 1x1 conv and convolution_backward of the materialised
             concat/upsample (K3), F.max_pool2d then that conv, two calls,
-            whose backward routes a tie to one element (K4).
+            whose backward routes a tie to one element (K4). Each k4 row
+            names K4's design (poolconv.K4_DESIGN: one pass forward; one
+            pass over x and g, then a fixed-order sum, backward) and its
+            share of the bound.
 6. k5, k6 - the JFA distance transform and the Canny boundary kernels
             against their plain versions, bit for bit, on the 80 planes of
             256^2 a 16 x 5-class batch gives them (Voronoi blobs, uniform
             noise, an all-zero and an all-one plane); no PyTorch call
-            computes either, so library_ms is null.
-7. k8, k5_tiles_256, k5_512, k7 - the row-tiled kernels on the planes of
-            the large patches, bit for bit against their plain versions
-            (the same band decomposition) and the whole-plane plain
-            versions: K8 on the 40 planes of 512^2 an 8 x 5-class batch
-            gives and the 10 of 1024^2 of a 2 x 5-class batch; the EDT
-            kernel, which serves K5's planes and K7's alike, on those and
-            the 80 of 256^2; each timed at its default tile and at others
-            (ms_by_tile). k7_k8_forced_256: K8 forced through `tile`
-            against K6 on the 80 planes of 256^2.
+            computes either, so library_ms is null. The k5 row names the
+            EDT's design (distance.plan: "cluster" here) and its launches.
+7. k8, k5_layouts_256, k5_512, k7 - the row-tiled Canny and the EDT on
+            the planes of the large patches, bit for bit against their
+            plain versions (K7's band decomposition) and the whole-plane
+            plain versions: K8 on the 40 planes of 512^2 an 8 x 5-class
+            batch gives and the 10 of 1024^2 of a 2 x 5-class batch, timed
+            at its default tile and at others (ms_by_tile); the EDT
+            kernels, which serve K5's planes and K7's alike, on those and
+            the 80 of 256^2, in their default design ("tail" at 512^2 and
+            1024^2) and in every design and tile of EDT_LAYOUTS
+            (ms_by_design).
+            k7_k8_forced_256: K8 forced through `tile` against K6 on the
+            80 planes of 256^2.
 8. train  - the ISPRS multitask train step at full width (bf16, batch 16,
             256 px, Adam 1e-4, Tanimoto on the four heads, uint8 patches and
             Voronoi-blob class ids through make_device_pipeline) in the
             dense-trunk routing, the card's default: per step 44 K1
             launches, 44 K2 calls of 4 launches, 12 K3 calls each way (1
             launch a call forward; 3 backward, 4 where a part is
-            upsampled), 3 K4 calls each way (1 and 3), one EDT
-            call of 12 launches and one K6 launch; finite metric rows; the
+            upsampled), 3 K4 calls each way (1 and 2 launches), one EDT
+            call of one launch and one K6 launch; finite metric rows; the
             loss after 10 steps on one batch below the first step's. Times
             the warm steps (median, with a synchronise). Then 3 steps of
             the NHWC routing (dense_trunk=False: no K3, no K4), and one
@@ -79,7 +86,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 9. train_512, train_1024 - the same step at bench.py's large-patch rows:
             512 px, batch 8, 5 steps, and 1024 px, batch 2, 4 steps,
             without remat: per step the 256 px step's K1-K4 launches, and
-            on the label side one EDT call of 13 launches (512 px) or 14
+            on the label side one EDT call of 8 launches (512 px) or 9
             (1024 px) and one K8 launch (no K6); finite rows, a falling
             loss, the median warm step, patches/s and peak memory.
 10. train_wide, train_wide_1024, train_seg2, train_tail1 - the reference's
@@ -648,6 +655,8 @@ def phase_k3(densemm, F):
                "library_ms_fwd": lib_fwd, "library_ms_bwd": lib_bwd,
                "bound_ms_fwd": b_fwd, "bound_by_fwd": by_fwd,
                "bound_ms_bwd": b_bwd, "bound_by_bwd": by_bwd,
+               "share_of_bound_fwd": b_fwd / fwd_ms,
+               "share_of_bound_bwd": b_bwd / bwd_ms,
                "gflop": (ff + bf) / 1e9, "mbytes": (fb + bb) / 1e6,
                "calls_per_step": 1}
         emit(row)
@@ -718,7 +727,8 @@ def phase_k4(poolconv, F):
         b_fwd, by_fwd = bound(ff, fb)
         b_bwd, by_bwd = bound(2 * ff, bb)
         row = {"phase": "k4", "call": name, "N": N, "H": S, "C": C,
-               "cout": cout, "k": k, "tie_window_share": tie_share,
+               "cout": cout, "k": k, "design": poolconv.K4_DESIGN,
+               "tie_window_share": tie_share,
                "max_abs_err": err,
                "tolerance": TOLERANCE,
                "ms_fwd": fwd_ms, "ms_bwd": bwd_ms,
@@ -728,6 +738,8 @@ def phase_k4(poolconv, F):
                           "its backward routes a tie to one element",
                "bound_ms_fwd": b_fwd, "bound_by_fwd": by_fwd,
                "bound_ms_bwd": b_bwd, "bound_by_bwd": by_bwd,
+               "share_of_bound_fwd": b_fwd / fwd_ms,
+               "share_of_bound_bwd": b_bwd / bwd_ms,
                "gflop": 3 * ff / 1e9, "mbytes": (fb + bb) / 1e6,
                "calls_per_step": 1}
         emit(row)
@@ -748,6 +760,14 @@ def voronoi_ids(n, size, classes, rng, sites=12):
             (xx[..., None] - pts[:, 1]) ** 2
         out[k] = cls[np.argmin(d2, axis=-1)]
     return out
+
+
+# the EDT's layouts timed beside its default on each train step's planes
+# (distance.distance_transform_edt's arguments): every design and a tile
+# of the banded passes it can be forced to (the cluster sizes and fused
+# tails: tools/torch_edt_ablate.py)
+EDT_LAYOUTS = {256: ({"design": "tail"}, {"design": "tail", "tile": 4}),
+               512: ({"tile": 8},), 1024: ({"tile": 4},)}
 
 
 # class planes a train batch gives the label kernels, by patch: Voronoi
@@ -774,37 +794,52 @@ def label_planes(size=PATCH):
 
 def phase_labels(distance, boundary):
     """K5 and K6, bit for bit. Bound (label_row): 4 bytes in and 4 out a
-    pixel, and the integer work the function needs counted against
-    PEAK_SCALAR_OPS: K5 ~100 operations a pixel per JFA pass (8
-    candidates: bounds, the seed's unpacking, d^2, compare and select), K6
-    ~50 a pixel (Sobel, NMS, thresholds, cross dilation; these class
-    planes need no hysteresis round)."""
+    pixel, and the integer work the function needs on these planes
+    counted against PEAK_SCALAR_OPS: K5 ~100 operations per JFA pass for
+    each pixel that is not its own seed (edt_ops), K6 ~50 a pixel (Sobel,
+    NMS, thresholds, cross dilation; these class planes need no
+    hysteresis round). The EDT's row names its design (distance.plan) and
+    its launches a call."""
     planes = label_planes()
     H, W = planes.shape[1:]
     rows = {}
-    for name, fn, ref, ops_px in (
-            ("k5", distance.distance_transform_edt,
+    for name, mod, fn, ref, ops in (
+            ("k5", distance, distance.distance_transform_edt,
              distance.distance_transform_edt_reference,
-             100 * len(distance.tiled_steps(H, W))),
-            ("k6", boundary.boundary_label,
-             boundary.boundary_label_reference, 50)):
+             edt_ops(distance, planes)),
+            ("k6", boundary, boundary.boundary_label,
+             boundary.boundary_label_reference, 50 * planes.numel())):
+        n0 = mod.LAUNCHES
         got = fn(planes)
+        launches = mod.LAUNCHES - n0
         same(name, got, ref(planes))
         ms = cuda_ms(lambda: fn(planes), reps=10)
         plain_ms = cuda_ms(lambda: ref(planes), reps=2, warmup=1)
-        row = {"phase": name, **label_row(planes, got, ms, plain_ms,
-                                          ops_px)}
+        row = {"phase": name, **label_row(planes, ms, plain_ms, ops),
+               "launches_per_call": launches}
+        if name == "k5":
+            row["design"] = distance.plan(H, W)["design"]
         emit(row)
         rows[name] = row
     return rows
 
 
-def label_row(planes, got, ms, plain_ms, ops_px):
+def edt_ops(distance, planes):
+    """The integer operations the EDT needs on these planes: ~100 per JFA
+    pass (8 candidates: bounds, the seed's unpacking, d^2, compare and
+    select) for each nonzero pixel. A zero pixel is its own seed (d^2 0,
+    nothing nearer) and needs none: the kernels skip it."""
+    H, W = planes.shape[1:]
+    return 100 * len(distance.tiled_steps(H, W)) * \
+        int(torch.count_nonzero(planes))
+
+
+def label_row(planes, ms, plain_ms, ops):
     """The fields of a label kernel's row; bound: 4 bytes in and 4 out a
-    pixel against PEAK_BYTES, ops_px integer operations a pixel against
+    pixel against PEAK_BYTES, `ops` integer operations against
     PEAK_SCALAR_OPS."""
     P, H, W = planes.shape
-    t_ops = P * H * W * ops_px / PEAK_SCALAR_OPS
+    t_ops = ops / PEAK_SCALAR_OPS
     t_bytes = P * H * W * 8 / PEAK_BYTES
     return {"planes": P, "H": H, "W": W,
             "max_abs_err": 0.0, "tolerance": "bit-identical",
@@ -812,8 +847,10 @@ def label_row(planes, got, ms, plain_ms, ops_px):
             "library": "none: no PyTorch call computes this function",
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "ops_per_pixel": ops_px,
-            "nonzero_share": got.gt(0).float().mean().item()}
+            "share_of_bound": max(t_ops, t_bytes) * 1e3 / ms,
+            "ops": ops,
+            "nonzero_share": int(torch.count_nonzero(planes)) /
+            planes.numel()}
 
 
 def same(name, got, *wants):
@@ -829,13 +866,14 @@ def phase_labels_tiled(distance, boundary):
     decomposition, at the kernel's tile) and the whole-plane plain version,
     on the planes of the 512 px and 1024 px train steps (40 x 512^2 and
     10 x 1024^2); K8 forced through `tile` against K6 on the 80 planes of
-    256^2. The EDT kernel (K5's planes and K7's alike) at every tile of
-    1-16 rows on the planes of all three steps, each against the
-    whole-plane plain version, and at its default tile against the plain
-    version of its bands. Bounds as phase_labels' (the EDT ~100 operations
-    a pixel a pass, K8 ~50 a pixel; K8's halo rows are recomputed work the
-    bound does not count); plain_ms of the plain version at the tile the
-    wrapper gives it on the CPU."""
+    256^2. The EDT kernels (K5's planes and K7's alike) on the planes of
+    all three steps, at their default layout against the plain version of
+    K7's bands and the whole-plane plain version, and at every layout of
+    EDT_LAYOUTS against the default (ms_by_design). Bounds as
+    phase_labels' (the EDT edt_ops, K8 ~50 operations a pixel;
+    K8's halo rows and the EDT tail's are recomputed work the bound does
+    not count); plain_ms of the plain version at the tile the wrapper
+    gives it on the CPU."""
     rows = {}
     p256 = label_planes(256)
     k8_tile = boundary.default_tile(256, 256)
@@ -864,42 +902,50 @@ def phase_labels_tiled(distance, boundary):
             planes, tile), reps=2, warmup=1)
         windows = sum(min(H, r + tile + boundary.HALO) -
                       max(0, r - boundary.HALO) for r in range(0, H, tile))
-        row = {"phase": "k8", **label_row(planes, got, ms, plain_ms, 50),
+        row = {"phase": "k8", **label_row(planes, ms, plain_ms,
+                                          50 * planes.numel()),
                "tile": tile, "ms_by_tile": by_tile,
                "recomputed_rows_share": windows / H}
         emit(row)
         rows[f"k8_{size}"] = row
         del planes, got
 
-    for size, name in ((256, "k5_tiles_256"), (512, "k5_512"), (1024, "k7")):
+    for size, name in ((256, "k5_layouts_256"), (512, "k5_512"),
+                       (1024, "k7")):
         planes = label_planes(size)
         H, W = planes.shape[1:]
-        tile = distance.default_tile(W)
+        lay = distance.plan(H, W)
+        n0 = distance.LAUNCHES
         got = distance.distance_transform_edt(planes)
+        launches = distance.LAUNCHES - n0
         same(f"the EDT at {size}^2", got,
-             distance.distance_transform_edt_tiled_reference(planes, tile),
+             distance.distance_transform_edt_tiled_reference(
+                 planes, distance.default_tile(W)),
              distance.distance_transform_edt_reference(planes))
-        by_tile = {}
-        for t in (1, 2, 4, 8, 16):
-            same(f"the EDT at {size}^2, tile {t}",
-                 distance.distance_transform_edt(planes, tile=t), got)
-            by_tile[t] = cuda_ms(lambda: distance.distance_transform_edt(
-                planes, tile=t), reps=5)
-        row = {"phase": name, "tile": tile, "ms_by_tile": by_tile}
+        by_design = {}
+        for kw in EDT_LAYOUTS[size]:
+            def fn(kw=kw):
+                return distance.distance_transform_edt(planes, **kw)
+            same(f"the EDT at {size}^2, {kw}", fn(), got)
+            by_design[json.dumps(kw, sort_keys=True)] = cuda_ms(fn, reps=5)
+        row = {"phase": name, "design": lay["design"],
+               "tile": lay["tile"], "cluster": lay["cs"],
+               "fused_steps": lay["steps"][lay["nbanded"]:],
+               "launches_per_call": launches, "ms_by_design": by_design}
         if size > 256:        # phase_labels times 256^2
             ms = cuda_ms(lambda: distance.distance_transform_edt(planes),
                          reps=10)
             plain_ms = cuda_ms(
                 lambda: distance.distance_transform_edt_tiled_reference(
                     planes, distance.PLAIN_TILE), reps=2, warmup=1)
-            row.update(label_row(planes, got, ms, plain_ms,
-                                 100 * len(distance.tiled_steps(H, W))),
+            row.update(label_row(planes, ms, plain_ms,
+                                 edt_ops(distance, planes)),
                        plain_tile=distance.PLAIN_TILE)
         emit(row)
         rows[name] = row
         del planes, got
-    forced["k7_tiles_vs_k5_plain_256"] = {
-        "planes": 80, "tiles": list(rows["k5_tiles_256"]["ms_by_tile"])}
+    forced["edt_layouts_vs_plain_256"] = {
+        "planes": 80, "layouts": list(rows["k5_layouts_256"]["ms_by_design"])}
     emit({"phase": "k7_k8_forced_256", **forced, "max_abs_err": 0.0})
     return rows
 
@@ -1055,14 +1101,15 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
             sum(p.numel() for p in model.parameters()))
 
 
-# the label kernels' launches per step by patch: one EDT call (a launch
-# per pass of the filtered JFA schedule + 2; the reference gives 256^2 and
-# 512^2 planes to K5, larger ones to K7, the port all to one kernel) and
-# one Canny launch (K6 up to 384^2, K8 above) over all the batch's class
-# planes
-LABEL_LAUNCHES = {256: {"K5/K7": 12, "K6": 1, "K8": 0},
-                  512: {"K5/K7": 13, "K6": 0, "K8": 1},
-                  1024: {"K5/K7": 14, "K6": 0, "K8": 1}}
+# the label kernels' launches per step by patch: one EDT call (256^2:
+# the whole plane in one cluster launch; 512^2 and 1024^2: the leading
+# pass and the steps above 4 banded, 7 and 8 launches, and one fused
+# tail; the reference gives 256^2 and 512^2 planes to K5, larger ones to
+# K7, the port all to jfa.cu) and one Canny launch (K6 up to 384^2, K8
+# above) over all the batch's class planes
+LABEL_LAUNCHES = {256: {"K5/K7": 1, "K6": 1, "K8": 0},
+                  512: {"K5/K7": 8, "K6": 0, "K8": 1},
+                  1024: {"K5/K7": 9, "K6": 0, "K8": 1}}
 
 
 def expected_counts(steps, dense, patch=PATCH, segments=44, k1=True,
@@ -1071,15 +1118,16 @@ def expected_counts(steps, dense, patch=PATCH, segments=44, k1=True,
     (none with k1=False: segment mode "2") and one K2 call (4 launches)
     backward, `wide` of them at C = 256 (K9), all of them from
     FusedSegmentBwdOnly's backward (K10) with bwd_only; on the dense
-    trunk's tail 12 K3 and 3 K4 calls each way (one launch forward, three
-    backward, and a fourth before the backward of each K3 call with an
-    upsampled part: K3_UPS_CALLS of them); LABEL_LAUNCHES."""
+    trunk's tail 12 K3 and 3 K4 calls each way (K3: one launch forward,
+    three backward, and a fourth before the backward of each K3 call with
+    an upsampled part: K3_UPS_CALLS of them; K4: one forward, two
+    backward); LABEL_LAUNCHES."""
     k3, k4 = (12, 3) if dense else (0, 0)
     k3_bwd = 3 * k3 + (K3_UPS_CALLS if dense else 0)
     per = {"K1": segments if k1 else 0, "K2": 4 * segments,
            "K2 calls": segments, "K3": k3,
            "K3 calls": k3, "K3 bwd": k3_bwd, "K3 bwd calls": k3, "K4": k4,
-           "K4 calls": k4, "K4 bwd": 3 * k4, "K4 bwd calls": k4,
+           "K4 calls": k4, "K4 bwd": 2 * k4, "K4 bwd calls": k4,
            **LABEL_LAUNCHES[patch], "K9": 4 * wide,
            "K10": 4 * segments if bwd_only else 0}
     return {k: v * steps for k, v in per.items()}
@@ -1397,6 +1445,8 @@ def main():
         tot = per(krows, "calls_per_step")
         fwd_n, fwd_by = launched(key)
         bwd_n, bwd_by = launched(key + " bwd")
+        bwd_launches = ("3 launches a call, 4 with an upsampled part"
+                        if key == "K3" else "2 launches a call")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": fwd_n + bwd_n,
@@ -1405,7 +1455,8 @@ def main():
             "calls": {"forward": launched(key + " calls")[0],
                       "backward": launched(key + " bwd calls")[0]},
             "max_abs_err": max(r["max_abs_err"] for r in krows),
-            "tolerance": krows[0]["tolerance"],
+            "tolerance": krows[0]["tolerance"], "design": krows[0]["design"],
+            "share_of_bound": tot["bound_ms"] / tot["ms"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
             "library_ms": tot["library_ms"],
@@ -1414,17 +1465,17 @@ def main():
                            "materialised concat/upsample"),
             "per": f"one 16-patch 256 px dense-trunk train step: the "
                    f"{len(krows)} calls at their shapes, forward (1 launch "
-                   f"a call) and backward (3 launches a call"
-                   f"{', 4 with an upsampled part' if key == 'K3' else ''})"})
+                   f"a call) and backward ({bwd_launches})"})
     for key, row_key, name, src, rep, unit in (
-            ("K5/K7", "k5", "K5/K7 distance_transform_edt (JFA exact EDT "
-             "over row bands staged in shared memory: one CUDA kernel for "
-             "the planes of both TPU kernels)",
+            ("K5/K7", "k5", "K5/K7 distance_transform_edt (JFA exact EDT: "
+             "a whole plane in a thread block cluster's shared memory, one "
+             "launch; larger planes banded large-step passes and a fused "
+             "small-step tail; the planes of both TPU kernels)",
              "resuneta_torch/kernels/csrc/jfa.cu",
              "resuneta_tpu/ops/pallas/jfa.py:291",
-             "one 16-patch 256 px train step: one call of 12 launches over "
-             "80 planes of 256^2 (at_512: one call of 13 launches over 40 "
-             "planes of 512^2, an 8-patch 512 px step; at_1024: one of 14 "
+             "one 16-patch 256 px train step: one call of one launch over "
+             "80 planes of 256^2 (at_512: one call of 8 launches over 40 "
+             "planes of 512^2, an 8-patch 512 px step; at_1024: one of 9 "
              "over 10 planes of 1024^2, a 2-patch 1024 px step)"),
             ("K6", "k6", "K6 boundary_label (Canny(0,1) + cross dilation)",
              "resuneta_torch/kernels/csrc/canny.cu",
@@ -1449,13 +1500,16 @@ def main():
             "library_ms": None, "library": r["library"], "per": unit}
         sizes = {"K5/K7": (("at_512", "k5_512"), ("at_1024", "k7")),
                  "K8": (("at_1024", "k8_1024"),), "K6": ()}[key]
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by") + (
+            ("design", "launches_per_call", "share_of_bound",
+             "ms_by_design") if key == "K5/K7" else ("tile", "ms_by_tile"))
         for at, k in sizes:
-            entry[at] = {f: labels[k][f] for f in
-                         ("ms", "plain_ms", "bound_ms", "bound_by", "tile",
-                          "ms_by_tile")}
+            entry[at] = {f: labels[k][f] for f in fields}
         if key == "K5/K7":
             entry["also_replaces"] = "resuneta_tpu/ops/pallas/jfa.py:221"
-            entry["ms_by_tile"] = labels["k5_tiles_256"]["ms_by_tile"]
+            entry["design"] = r["design"]
+            entry["share_of_bound"] = r["share_of_bound"]
+            entry["ms_by_design"] = labels["k5_layouts_256"]["ms_by_design"]
         kernels.append(entry)
     emit({"kernels": kernels + wide_kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -204,7 +204,6 @@ Parts make_parts(const void* const* xs, void* const* dxs, const int* cins, const
     pt.cin = cins[p];
     pt.ups = ups[p] > 1 ? ups[p] : 1;
     pt.stride = strides[p] > 1 ? strides[p] : 1;
-    pt.pool = 1;
     pt.act = acts[p];
     pt.koff = koff;
     pt.Hi = pt.stride > 1 ? H * pt.stride : H / pt.ups;
@@ -277,7 +276,6 @@ cudaError_t f32_backward(Parts parts, const void* g, const void* wT, float* dwb,
   bias_row.cin = 1;
   bias_row.ups = 1;
   bias_row.stride = 1;
-  bias_row.pool = 1;
   bias_row.koff = ktot;
   bias_row.Hi = H;
   bias_row.Wi = W;

@@ -1,20 +1,19 @@
 // PR 3's 1x1 convolutions as GEMMs over NHWC tensors whose A operand is
-// gathered on the fly, for sm_90a: K4 (poolconv.cu, bf16 and f32) and
-// K3's f32 path (densemm.cu; K3's bf16 path has Hopper kernels of its
-// own there). Each kernel file wraps these device bodies in __global__
-// kernels of its own name, so a profile tells K3 from K4.
+// gathered on the fly, for sm_90a: K3's f32 path (densemm.cu; K3's bf16
+// path has Hopper kernels of its own there). densemm.cu wraps these device
+// bodies in __global__ kernels of its own names. K4 (poolconv.cu), which
+// took them first, has kernels of its own.
 //
 // A "part" is one NHWC input of a 1x1 convolution, read at output pixel
 // (n, h, w) of an (N, H, W, cout) result as
 //   ups k > 1:    input pixel (h / k, w / k)        (nearest upsample)
 //   stride s > 1: input pixel (h * s, w * s)        (strided 1x1 conv)
-//   pool k > 1:   max over input pixels (h*k + a, w*k + b), a, b < k
 // with a ReLU on the values where `act` is set. The weights of all parts
 // are one (sum cin_p, cout) matrix, part p's rows starting at `koff`.
 //
 // Roundings, as the TPU kernels: the gathered values and the weights are
 // rounded to the compute type (bf16 for bf16 tensors, exact here since
-// max and ReLU of bf16 values are bf16 values; f32 for f32 tensors),
+// the ReLU of bf16 values is a bf16 value; f32 for f32 tensors),
 // products are summed in f32, the bias is added in f32 and the result is
 // cast once. bf16 runs on the tensor cores (WMMA 16x16x16, f32
 // accumulators); f32 runs the same tiles with f32 FMAs on the CUDA cores.
@@ -48,7 +47,7 @@ constexpr int MAX_PARTS = 6;   // five parts and the bias row
 struct Part {
   const void* x;    // NHWC input; null for the bias row (ones)
   void* dx;         // NHWC gradient of x (dgrad)
-  int cin, ups, stride, pool, act, koff;
+  int cin, ups, stride, act, koff;
   int Hi, Wi;       // x's height and width
   long long first;  // dgrad: first block (x); wgrad: first tile (y)
   long long per;    // wgrad: pixels per chunk
@@ -218,24 +217,9 @@ struct Mma<false, BN> {
 template <typename T>
 __device__ __forceinline__ void gather8(const Part& pt, int n, int h, int w, int c, float* v) {
   const T* x = static_cast<const T*>(pt.x);
-  if (pt.pool > 1) {
-    const int k = pt.pool;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = -INFINITY;
-    for (int a = 0; a < k; ++a) {
-      for (int b = 0; b < k; ++b) {
-        float u[8];
-        const long long off = (((long long)n * pt.Hi + h * k + a) * pt.Wi + w * k + b) * pt.cin + c;
-        Io<T>::load8(x + off, u);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], u[e]);
-      }
-    }
-  } else {
-    const int hi = pt.stride > 1 ? h * pt.stride : h / pt.ups;
-    const int wi = pt.stride > 1 ? w * pt.stride : w / pt.ups;
-    Io<T>::load8(x + (((long long)n * pt.Hi + hi) * pt.Wi + wi) * pt.cin + c, v);
-  }
+  const int hi = pt.stride > 1 ? h * pt.stride : h / pt.ups;
+  const int wi = pt.stride > 1 ? w * pt.stride : w / pt.ups;
+  Io<T>::load8(x + (((long long)n * pt.Hi + hi) * pt.Wi + wi) * pt.cin + c, v);
   if (pt.act) {
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.0f);

@@ -286,7 +286,7 @@ def k3_design(dtype):
 
 
 def wgrad_chunks(cins, cout, pixels):
-    """Pixel chunks of gemm1x1.cuh's weight gradient (K3 in f32, K4):
+    """Pixel chunks of gemm1x1.cuh's weight gradient (K3 in f32):
     about _WGRAD_BLOCKS blocks over the (32-channel, 64-output) tiles of
     every part and the bias row, and at most one chunk per 64 pixels."""
     otiles = -(-cout // 64) if cout > 32 else 1

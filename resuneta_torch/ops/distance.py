@@ -3,20 +3,25 @@ then per-plane min-max to [0, 1] (resuneta_tpu/ops/distance.py:80-115,
 multitasking_utils.py:26-35, cv2.distanceTransform(DIST_L2, 0) then
 cv2.normalize(NORM_MINMAX)).
 
-`distance_transform_edt` runs one CUDA kernel (kernels/csrc/jfa.cu) for
-every plane: one launch a pass over bands of rows staged in shared memory,
-the design of K7, the reference's row-tiled flood (ops/pallas/jfa.py:221),
-which on an H100 also beats a whole-plane flood like K5 (jfa.py:291) on the
-planes of 256^2 and 512^2 the reference gives K5. On a CUDA tensor it
-launches the kernel or raises; only a tensor on the CPU takes a plain
-version, `distance_transform_edt_tiled_reference`, the same band
-decomposition; `distance_transform_edt_reference` is K5's plain version,
-the whole-plane flood. All are bit-identical to the reference
-(ops/distance.py and the Pallas kernels): the same int32 seeds, 1+JFA+1
-Jacobi schedule, candidate order and strict <. `LAUNCHES` counts the
-kernel launches as the CUDA side reports them (one a pass plus two a call,
-whatever the number of planes: 12 at 256^2, 13 at 512^2, 14 at 1024^2),
-`CALLS` wrapper calls on any device.
+`distance_transform_edt` runs the CUDA kernels of kernels/csrc/jfa.cu,
+which replace K5 (ops/pallas/jfa.py:291, whole planes) and K7 (jfa.py:221,
+row-tiled), in one of two designs (`plan`):
+- "cluster": a thread block cluster holds a whole plane's seeds in shared
+  memory and runs every pass of the schedule in one launch (the 256^2
+  planes of the 256 px step; 64^2);
+- "tail": planes too large for that (512^2, 1024^2) run the leading pass
+  and the steps above TAIL as banded passes through device memory, `tile`
+  rows a block, and the steps up to TAIL in one cluster launch over bands
+  of rows with a shrinking halo.
+On a CUDA tensor it launches the kernels or raises; only a tensor on the
+CPU takes a plain version, `distance_transform_edt_tiled_reference`, K7's
+band decomposition; `distance_transform_edt_reference` is K5's plain
+version, the whole-plane flood. All are bit-identical to the reference
+(ops/distance.py and the Pallas kernels): the same seeds, 1+JFA+1 Jacobi
+schedule, candidate order and strict <. `LAUNCHES` counts the kernel
+launches as the CUDA side reports them (one a call in design "cluster":
+256^2, 64^2; 1 + the banded passes in design "tail": 8 at 512^2, 9 at
+1024^2), `CALLS` wrapper calls on any device.
 """
 
 import ctypes
@@ -29,13 +34,31 @@ LAUNCHES = 0
 CALLS = 0
 
 _BIG_I32 = 2 ** 30
-# the kernel stages three bands of `tile` rows of int32 seeds in a block's
-# shared memory, at most SMEM_BYTES; by default it takes the largest power
-# of two up to 16 rows whose bands fit DEFAULT_SMEM_BYTES: 8 rows at 256^2,
-# 4 at 512^2, 2 at 1024^2, the fastest tile of 1-16 at each on an H100
-# (chip_smoke.py phases k5, k5_512, k7: ms_by_tile)
+# a block's shared memory
 SMEM_BYTES = 232448
+# design "tail"'s banded passes stage three bands of `tile` rows of int32
+# seeds and a row of "no seed" (4 * (3 * tile + 1) * W bytes); by default
+# the largest power of two up to 16 rows whose bands fit
+# DEFAULT_SMEM_BYTES: 8 rows at 256^2, 4 at 512^2, 2 at 1024^2, the
+# fastest tile of 1-16 at each on an H100 when every pass ran banded
+# (chip_smoke.py phases k5_512, k7: ms_by_tile)
 DEFAULT_SMEM_BYTES = 24 * 1024
+# design "cluster"'s blocks hold two buffers of R rows of int32 seeds and
+# a row of "no seed" (4 * (2 * R + 1) * W bytes): the smallest cluster (a
+# power of two up to MAX_CLUSTER) whose blocks' two buffers fit
+# CLUSTER_SMEM, three blocks to an SM: 8 blocks of 32 rows at 256^2, the
+# faster of 8 and 4 there on an H100 (tools/torch_edt_ablate.py)
+CLUSTER_SMEM = 64 * 1024
+# the portable cluster size, and the blocks of design "tail"'s clusters
+MAX_CLUSTER = 8
+# seeds are packed as i << 16 | j, "no seed" a point far off the plane
+MAX_SIDE = 8192
+# design "tail" fuses the steps up to TAIL (4, 2, 1, 1: a halo of 8 rows),
+# or the largest power of two below whose band fits: of 1, 4, 8 and 16 on
+# an H100 the fastest at 1024^2 and 1.5% behind 1 at 512^2, where a fused
+# pass costs about what a banded one does (tools/torch_edt_ablate.py)
+TAIL = 4
+DESIGNS = ("cluster", "tail")
 # the band rows of the plain version when the caller names none: the
 # reference's row tile at 1024^2 (jfa.py _pick_tile); the result does not
 # depend on the tile, and few bands keep the CPU quick
@@ -165,7 +188,7 @@ def distance_transform_edt_tiled_reference(planes, tile):
 
 
 def default_tile(W):
-    """The kernel's band rows: the largest power of two up to 16 whose
+    """Design "tail"'s band rows: the largest power of two up to 16 whose
     three bands of int32 seeds fit DEFAULT_SMEM_BYTES (2 at W = 1024), at
     least 1."""
     tile = 16
@@ -183,46 +206,123 @@ def _check(planes):
 
 
 def _check_tile(H, W, tile):
-    if tile < 1 or 12 * tile * W > SMEM_BYTES or H >= 2 ** 15:
+    if tile < 1 or 4 * (3 * tile + 1) * W > SMEM_BYTES:
         raise ValueError(f"the EDT kernel (K5/K7) takes tile >= 1 with "
-                         f"12 * tile * W <= {SMEM_BYTES} bytes of shared "
-                         f"memory and H < 32768 (seeds packed as i << 16 | "
-                         f"j), got tile {tile}, plane {H}x{W}")
+                         f"4 * (3 * tile + 1) * W <= {SMEM_BYTES} bytes of "
+                         f"shared memory, got tile {tile}, plane {H}x{W}")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _whole_plane_cluster(H, W, budget):
+    """Design "cluster"'s blocks: the smallest power of two up to
+    MAX_CLUSTER whose blocks' two seed buffers fit `budget` bytes (and,
+    with a row of "no seed", a block's shared memory); None if none
+    does."""
+    cs = 1
+    while cs <= MAX_CLUSTER:
+        R = _cdiv(H, cs)
+        if 8 * R * W <= budget and 4 * (2 * R + 1) * W <= SMEM_BYTES:
+            return cs
+        cs *= 2
+    return None
+
+
+def plan(H, W, design=None, tile=None):
+    """The kernels' layout for (H, W) planes: {"design", "steps" (K7's
+    filtered schedule), "nbanded" (its leading passes run banded), "tile",
+    "cs" (the cluster's blocks), "band" and "halo" (rows of a cluster's band
+    and a side of its window), "R" (window rows a block), "launches"}.
+    `design` None picks "cluster" where a plane fits CLUSTER_SMEM a block
+    and no `tile` is named, else "tail"; `tile` sets the banded passes'
+    rows. The cluster's blocks and the fused tail's steps follow the
+    module's CLUSTER_SMEM, MAX_CLUSTER and TAIL. Raises ValueError on what
+    the kernels cannot take."""
+    if not (1 <= H <= MAX_SIDE and 1 <= W <= MAX_SIDE):
+        raise ValueError(f"the EDT kernel (K5/K7) takes planes up to "
+                         f"{MAX_SIDE}x{MAX_SIDE}, got {H}x{W}")
+    if tile is not None:
+        _check_tile(H, W, tile)
+    if design not in (None,) + DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    steps = tiled_steps(H, W) or [1]     # a 1x1 plane: one empty pass
+    if design is None:
+        design = ("cluster" if tile is None and
+                  _whole_plane_cluster(H, W, CLUSTER_SMEM) else "tail")
+    if design == "cluster":
+        cs = (_whole_plane_cluster(H, W, CLUSTER_SMEM) or
+              _whole_plane_cluster(H, W, SMEM_BYTES))
+        if cs is None:
+            raise ValueError(f"the EDT kernel (K5/K7) cannot hold a {H}x{W} "
+                             f"plane in a cluster of {MAX_CLUSTER} blocks")
+        return {"design": design, "steps": steps, "nbanded": 0,
+                "tile": None, "cs": cs, "band": H, "halo": 0,
+                "R": _cdiv(H, cs), "launches": 1}
+    tile = default_tile(W) if tile is None else tile
+    cs = MAX_CLUSTER
+    rmax = (SMEM_BYTES // (4 * W) - 1) // 2
+    for t in [2 ** e for e in range(TAIL.bit_length() - 1, -1, -1)]:
+        nb = 1 + sum(s > t for s in steps[1:])
+        if nb == len(steps):
+            continue
+        halo = sum(steps[nb:])
+        if cs * rmax >= H:
+            band = H
+        else:
+            band = cs * rmax - 2 * halo
+            if band < 1:
+                continue
+            band = _cdiv(H, _cdiv(H, band))
+        return {"design": design, "steps": steps, "nbanded": nb,
+                "tile": tile, "cs": cs, "band": band, "halo": halo,
+                "R": _cdiv(min(H, band + 2 * halo), cs), "launches": nb + 1}
+    raise ValueError(f"the EDT kernel (K5/K7) finds no fused tail for a "
+                     f"{H}x{W} plane in clusters of {cs} blocks")
 
 
 def _kernel():
     global _fn
     if _fn is None:
         _fn = build.load("jfa").jfa_edt
-        _fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        _fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         _fn.restype = ctypes.c_int
     return _fn
 
 
-def distance_transform_edt(planes, tile=None):
+def distance_transform_edt(planes, tile=None, design=None):
     """(P, H, W) int32 planes -> (P, H, W) f32 distances (see module doc),
-    in bands of `tile` rows: by default `default_tile(W)` on the card,
-    PLAIN_TILE on the CPU."""
+    in the layout `plan(H, W, design, tile)` gives; on the
+    CPU the plain version of K7's bands, of `tile` rows (PLAIN_TILE when
+    None)."""
     global CALLS, LAUNCHES
     _check(planes)
     P, H, W = planes.shape
-    _check_tile(H, W, default_tile(W) if tile is None else tile)
+    lay = plan(H, W, design, tile)
     CALLS += 1
     if planes.device.type == "cpu":
         return distance_transform_edt_tiled_reference(
             planes, PLAIN_TILE if tile is None else tile)
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
-    if tile is None:
-        tile = default_tile(W)
+    if P > 65535:
+        raise ValueError(f"the EDT kernel (K5/K7) takes up to 65535 planes "
+                         f"a call, got {P}")
     out = torch.empty((P, H, W), dtype=torch.float32, device=planes.device)
-    work = torch.empty((2, P, H, W), dtype=torch.int32, device=planes.device)
+    work = (torch.empty((2, P, H, W), dtype=torch.int32,
+                        device=planes.device) if lay["nbanded"] else None)
+    steps = (ctypes.c_int * len(lay["steps"]))(*lay["steps"])
     n = ctypes.c_int(0)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = _kernel()(planes.data_ptr(), out.data_ptr(), work.data_ptr(), P,
-                       H, W, tile, ctypes.byref(n), stream)
+        rc = _kernel()(planes.data_ptr(), out.data_ptr(),
+                       None if work is None else work.data_ptr(), P, H, W,
+                       steps, len(lay["steps"]), lay["nbanded"],
+                       lay["tile"] or 0, lay["cs"], lay["band"], lay["halo"],
+                       lay["R"], ctypes.byref(n), stream)
     LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"jfa kernel launch failed: cudaError {rc}")

@@ -22,8 +22,9 @@ the count itself and never uses max_pool2d's backward.
 launches its kernels (kernels/csrc/poolconv.cu) or raises; only a tensor
 on the CPU takes the plain version (`pool_conv_reference`,
 `pool_conv_bwd_reference`). `LAUNCHES` and `BWD_LAUNCHES` count kernel
-launches as the CUDA side reports them (one a forward call, three a
-backward call), `CALLS` and `BWD_CALLS` wrapper calls on any device.
+launches as the CUDA side reports them (one a forward call; two a backward
+call: the one pass over x and g, and the fixed-order sum of the blocks'
+dW / dbias partials), `CALLS` and `BWD_CALLS` wrapper calls on any device.
 `pool_conv` is the autograd.Function's entry.
 """
 
@@ -33,13 +34,15 @@ import torch
 
 from ..kernels import build
 from .convseg import no_tf32
-from .densemm import wgrad_chunks
 
 LAUNCHES = 0
 CALLS = 0
 BWD_LAUNCHES = 0
 BWD_CALLS = 0
 
+# what the kernels are (chip_smoke.py's k4 rows): one pass forward, one
+# pass over (x, g) and a fixed-order sum backward
+K4_DESIGN = "one_pass"
 _fns = None
 
 
@@ -109,6 +112,15 @@ def _check(x, w, bias, k):
         raise ValueError("w and bias must be on x's device")
 
 
+def _check_kernel(C, cout, k):
+    """What the CUDA kernels take (poolconv.cu): k in {2, 4, 8}, C in {8,
+    16, 32}, cout in {8, 16}; the PSP's levels are C = 32, cout = 8."""
+    if k not in (2, 4, 8) or C not in (8, 16, 32) or cout not in (8, 16):
+        raise ValueError(f"the K4 kernels take k in (2, 4, 8), C in (8, 16, "
+                         f"32) and cout in (8, 16); got C={C}, cout={cout}, "
+                         f"k={k}")
+
+
 def _kernels():
     global _fns
     if _fns is None:
@@ -118,10 +130,13 @@ def _kernels():
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = lib.poolconv_backward
-        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        _fns = (fwd, bwd)
+        # the backward's blocks write at most this many rows of dW / dbias
+        # partials (the kernel chooses its blocks from the shapes)
+        lib.poolconv_partial_rows.restype = ctypes.c_int
+        _fns = (fwd, bwd, lib.poolconv_partial_rows())
     return _fns
 
 
@@ -135,6 +150,8 @@ def pool_conv_fwd(x, w, bias, *, k):
     cout) f32; bias: (cout,) f32. Returns (N, H/k, W/k, cout) in x.dtype."""
     global CALLS, LAUNCHES
     _check(x, w, bias, k)
+    if x.device.type == "cuda":
+        _check_kernel(x.shape[-1], w.shape[1], k)
     CALLS += 1
     if x.device.type == "cpu":
         return pool_conv_reference(x, w, bias, k=k)
@@ -142,15 +159,15 @@ def pool_conv_fwd(x, w, bias, *, k):
         raise ValueError(f"no kernel for device {x.device}")
     N, H, W, C = x.shape
     cout = w.shape[1]
-    wc = w.to(_cd(x)).contiguous()
+    w32 = w.float().contiguous()       # rounded to the compute type on chip
     b32 = bias.float().contiguous()
     y = torch.empty((N, H // k, W // k, cout), dtype=x.dtype, device=x.device)
-    _aligned(x, wc, y)
+    _aligned(x, w32, y)
     n = ctypes.c_int(0)
-    fwd, _ = _kernels()
+    fwd, _, _ = _kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fwd(x.data_ptr(), wc.data_ptr(), b32.data_ptr(), y.data_ptr(), N,
+        rc = fwd(x.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(), N,
                  H, W, C, cout, int(k), int(x.dtype == torch.bfloat16),
                  ctypes.byref(n), stream)
     LAUNCHES += n.value
@@ -171,24 +188,27 @@ def pool_conv_bwd(x, g, w, *, k):
             or not g.is_contiguous() or g.device != x.device:
         raise ValueError(f"g must be contiguous {(N, H // k, W // k, cout)} "
                          f"{x.dtype}, got {tuple(g.shape)} {g.dtype}")
+    if x.device.type == "cuda":
+        _check_kernel(C, cout, k)
     BWD_CALLS += 1
     if x.device.type == "cpu":
         return pool_conv_bwd_reference(x, g, w, k=k)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    wT = w.t().to(_cd(x)).contiguous()
+    w32 = w.float().contiguous()       # rounded to the compute type on chip
     dx = torch.empty_like(x)
+    _, bwd, rows = _kernels()
+    # dW with dbias as its last row, and the blocks' partial rows of it
+    # (apart, so that the returned gradients do not hold the partials)
     dwb = torch.empty((C + 1, cout), dtype=torch.float32, device=x.device)
-    chunks = wgrad_chunks([C], cout, N * (H // k) * (W // k))
-    work = torch.empty((chunks, C + 1, cout), dtype=torch.float32,
+    part = torch.empty((rows, C + 1, cout), dtype=torch.float32,
                        device=x.device)
-    _aligned(x, g, wT, dx)
+    _aligned(x, g, w32, dx)
     n = ctypes.c_int(0)
-    _, bwd = _kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = bwd(x.data_ptr(), g.data_ptr(), wT.data_ptr(), dx.data_ptr(),
-                 dwb.data_ptr(), work.data_ptr(), chunks, N, H, W, C, cout,
+        rc = bwd(x.data_ptr(), g.data_ptr(), w32.data_ptr(), dx.data_ptr(),
+                 dwb.data_ptr(), part.data_ptr(), N, H, W, C, cout,
                  int(k), int(x.dtype == torch.bfloat16), ctypes.byref(n),
                  stream)
     BWD_LAUNCHES += n.value

@@ -423,10 +423,8 @@ def test_label_kernels_are_bit_identical(cuda, op, size):
     launches = mod.LAUNCHES
     got = fn(p)
     torch.cuda.synchronize()
-    # the EDT: one launch a pass of the filtered JFA schedule, plus the
-    # seeds' and the distances'
-    assert mod.LAUNCHES == launches + (
-        len(distance.tiled_steps(*size)) + 2 if op == "k5" else 1)
+    # the EDT: these planes fit a cluster's shared memory, one launch
+    assert mod.LAUNCHES == launches + 1
     assert torch.equal(got, ref(p))
     assert torch.equal(got.cpu(), ref(p.cpu()))
 
@@ -444,11 +442,12 @@ K7_CASES = [((64, 64), 4), ((48, 80), 5), ((13, 40), 3), ((40, 40), 64),
 @pytest.mark.parametrize("op,case", [("k8", c) for c in range(len(K8_CASES))]
                          + [("k7", c) for c in range(len(K7_CASES))])
 def test_tiled_label_kernels_are_bit_identical(cuda, op, case):
-    """K8 and the EDT kernel (K7's design) against their plain versions
-    (the same band decomposition) and the whole-plane plain versions, on
-    the card; small planes also against the CPU's plain version. K8: one
-    launch, no whole-plane launch; the EDT: one a pass of the filtered
-    schedule plus two."""
+    """K8 and the EDT kernels against their plain versions (the same band
+    decomposition) and the whole-plane plain versions, on the card; small
+    planes also against the CPU's plain version. K8: one launch, no
+    whole-plane launch; the EDT (a `tile` forces design "tail"): the
+    leading pass and the steps above distance.TAIL banded, the rest in
+    one cluster launch, as `distance.plan` counts them."""
     size, tile = (K8_CASES if op == "k8" else K7_CASES)[case]
     p = torch.from_numpy(_label_planes(size, sum(size))).to(cuda)
     mod = boundary if op == "k8" else distance
@@ -463,7 +462,7 @@ def test_tiled_label_kernels_are_bit_identical(cuda, op, case):
                           distance.distance_transform_edt_tiled_reference,
                           distance.distance_transform_edt_reference)
         used = tile or distance.default_tile(size[1])
-        n = len(distance.tiled_steps(*size)) + 2
+        n = distance.plan(*size, tile=tile)["launches"]
     counters = ("LAUNCHES", "TILED_LAUNCHES") if op == "k8" else (
         "LAUNCHES",)
     before = [getattr(mod, c) for c in counters]
@@ -490,6 +489,39 @@ def test_forced_tiled_kernels_match_the_whole_plane_kernels(cuda):
                            distance.distance_transform_edt(p))
 
 
+# the EDT's layouts on the train steps' planes: the default, every design
+# and tile the wrapper can be forced to, and the cluster sizes and fused
+# tails of the module constants the layout follows (ops/distance.py
+# CLUSTER_SMEM, MAX_CLUSTER, TAIL)
+EDT_LAYOUTS = [(256, {}, {}), (256, {}, {"CLUSTER_SMEM": 128 * 1024}),
+               (256, {"design": "tail"}, {}),
+               (256, {"design": "tail"}, {"TAIL": 16}), (256, {"tile": 4}, {}),
+               (512, {}, {}), (512, {}, {"TAIL": 8}), (512, {}, {"TAIL": 16}),
+               (512, {}, {"TAIL": 1}), (1024, {}, {}), (1024, {}, {"TAIL": 16}),
+               (1024, {}, {"TAIL": 1}),
+               (1024, {}, {"TAIL": 8, "MAX_CLUSTER": 4})]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(EDT_LAYOUTS)))
+def test_edt_layouts_are_bit_identical(cuda, case, monkeypatch):
+    """Bit for bit against the whole-plane plain version on the card, with
+    the launches `distance.plan` gives (one for a 256^2 plane in design
+    "cluster"; 8 at 512^2 and 9 at 1024^2 by default)."""
+    size, kw, consts = EDT_LAYOUTS[case]
+    for name, value in consts.items():
+        monkeypatch.setattr(distance, name, value)
+    p = torch.from_numpy(_label_planes((size, size), size + case)).to(cuda)
+    launches = distance.LAUNCHES
+    got = distance.distance_transform_edt(p, **kw)
+    torch.cuda.synchronize()
+    assert distance.LAUNCHES - launches == distance.plan(
+        size, size, **kw)["launches"]
+    assert torch.equal(got, distance.distance_transform_edt_reference(p))
+    if not kw and not consts:
+        assert distance.LAUNCHES - launches == {256: 1, 512: 8, 1024: 9}[size]
+
+
 @pytest.mark.gpu
 def test_new_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="K8"):      # window past 227 KB
@@ -499,6 +531,10 @@ def test_new_wrappers_raise_instead_of_falling_back(cuda):
         distance.distance_transform_edt(
             torch.zeros((1, 64, 1024), dtype=torch.int32, device=cuda),
             tile=32)
+    with pytest.raises(ValueError, match="K5/K7"):   # 2 MB of seeds
+        distance.distance_transform_edt(
+            torch.zeros((1, 512, 512), dtype=torch.int32, device=cuda),
+            design="cluster")
     for fn in (boundary.boundary_label, distance.distance_transform_edt):
         with pytest.raises(ValueError):
             fn(torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda),
@@ -523,8 +559,9 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
     chip_smoke.step_card_vs_cpu (the one copy of this comparison): 44 K1
     launches, 44 K2 calls of 4 launches, 12 K3 calls forward (one launch
     each) and 12 backward (three each), one K4 call each way (the 64 px PSP
-    pools only at k = 2), one EDT call of 10 launches at 64^2 and one K6
-    launch per step; the card against the CPU plain path within
+    pools only at k = 2; one launch forward, two backward), one EDT call
+    of one launch at 64^2 (a whole plane in one cluster) and one K6 launch
+    per step; the card against the CPU plain path within
     chip_smoke.STEP_TOL (the losses, all gradients, the heads, the last
     decoder ResBlock's leaves that K2 gives, the Combine_5 and PSPPooling_1
     leaves that K3 and K4 give, and every BN running buffer)."""
@@ -533,8 +570,8 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
 
     got = chip_smoke.step_card_vs_cpu()
     assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K3": 12,
-                               "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 3,
-                               "K5/K7": 10, "K6": 1, "K9": 0, "K10": 0}
+                               "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 2,
+                               "K5/K7": 1, "K6": 1, "K9": 0, "K10": 0}
     assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
 
 
@@ -545,15 +582,15 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
 MODE_STEPS = {
     "bwd_wide": ({"bwd_wide": True},
                  {"K1": 56, "K2": 4 * 56, "K3": 12, "K3_bwd": 3 * 12,
-                  "K4": 1, "K4_bwd": 3, "K5/K7": 10, "K6": 1, "K9": 4 * 12,
+                  "K4": 1, "K4_bwd": 2, "K5/K7": 1, "K6": 1, "K9": 4 * 12,
                   "K10": 0}),
     "segment_mode_2": ({"segment_mode": "2"},
                        {"K1": 0, "K2": 4 * 44, "K3": 0, "K3_bwd": 0,
-                        "K4": 0, "K4_bwd": 0, "K5/K7": 10, "K6": 1,
+                        "K4": 0, "K4_bwd": 0, "K5/K7": 1, "K6": 1,
                         "K9": 0, "K10": 4 * 44}),
     "dense_tail_1": ({"dense_tail": "1"},
                      {"K1": 49, "K2": 4 * 49, "K3": 12, "K3_bwd": 3 * 12,
-                      "K4": 1, "K4_bwd": 3, "K5/K7": 10, "K6": 1, "K9": 0,
+                      "K4": 1, "K4_bwd": 2, "K5/K7": 1, "K6": 1, "K9": 0,
                       "K10": 0}),
 }
 
@@ -578,8 +615,9 @@ def test_mode_train_step_on_card_matches_cpu_plain_path(cuda, mode):
 def test_train_step_512px_on_card(cuda):
     """One 512 px dense-trunk step at full width (bf16, batch 2, through
     chip_smoke.train_steps): 44 K1 launches, 44 K2 calls of 4, 12 K3 and 3
-    K4 calls each way, and on the label side one EDT call of 13 launches
-    and one K8 launch, no K6; finite metric rows."""
+    K4 calls each way, and on the label side one EDT call of 8 launches
+    (design "tail": 7 banded passes, one fused tail) and one K8 launch, no
+    K6; finite metric rows."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     from resuneta_torch import models
@@ -588,7 +626,7 @@ def test_train_step_512px_on_card(cuda):
         models, 1, None, (convseg, densemm, poolconv, distance, boundary),
         patch=512, batch=2)
     assert counts == chip_smoke.expected_counts(1, True, 512)
-    assert counts["K5/K7"] == 13 and counts["K8"] == 1
+    assert counts["K5/K7"] == 8 and counts["K8"] == 1
     assert counts["K6"] == 0
     assert np.isfinite(rows).all() and params == 42708930
 
@@ -694,7 +732,28 @@ def test_k4_matches_plain(cuda, k, dtype, tied):
     launches = poolconv.BWD_LAUNCHES
     got = poolconv.pool_conv_bwd(x, g, w, k=k)
     torch.cuda.synchronize()
-    assert poolconv.BWD_LAUNCHES == launches + 3
+    # one pass over (x, g), then the fixed-order sum of the partials
+    assert poolconv.BWD_LAUNCHES == launches + 2
+    want = poolconv.pool_conv_bwd_reference(x, g, w, k=k)
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        _close(gt, wt, ulp if i == 0 else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_k4_main_path_shape_is_deterministic(cuda, k, dtype):
+    """The PSP's calls at 256 px (16 x 256^2 x 32 -> cout 8) with planted
+    ties: within the tolerance of the plain version, and a repeated
+    backward bit-identical (fixed-order sums, no atomics)."""
+    x = _tied(16, 256, 256, 32, k, cuda, dtype)
+    w = torch.randn((32, 8), device=cuda) / 32 ** 0.5
+    g = torch.randn((16, 256 // k, 256 // k, 8), device=cuda).to(dtype)
+    got = poolconv.pool_conv_bwd(x, g, w, k=k)
+    again = poolconv.pool_conv_bwd(x, g, w, k=k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ulp = 2 ** -7 if dtype == torch.bfloat16 else 0
     want = poolconv.pool_conv_bwd_reference(x, g, w, k=k)
     for i, (gt, wt) in enumerate(zip(got, want)):
         _close(gt, wt, ulp if i == 0 else 0)
@@ -719,6 +778,10 @@ def test_k3_k4_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):                           # NCHW strides
         poolconv.pool_conv_fwd(x.permute(0, 3, 1, 2), w[:, :8], bias[:8],
                                k=2)
+    x64 = torch.zeros((1, 8, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="K4"):               # C = 64
+        poolconv.pool_conv_bwd(x64, torch.zeros((1, 4, 4, 8), device=cuda),
+                               torch.zeros((64, 8), device=cuda), k=2)
 
 
 # --------------------------------------------- K3's Hopper kernels (bf16)

@@ -24,13 +24,15 @@ ResUnetA's segment_mode, bwd_wide, fwd_wide and dense_tail: the
 reference's opt-in train modes, off by default (models/resuneta.py).
 Prints one JSON line: the card (nvidia-smi name and power limit), the
 routing and modes, the host wall time per step (without the profiler,
-and under it), the peak device memory, the device busy time per step (sum
+and under it), the peak device memory (allocated blocks, and the bytes
+the tensors requested), the device busy time per step (sum
 of kernel times, under the profiler), the busy share, the time of each of
 the port's kernels (K1 tma_fwd_kernel, and the WMMA convseg_kernel where
 C = 512 or C != Cout, K2 dgrad/wgrad at C <= 128, K9 dgrad/wgrad at C =
 256, their reduce_rows and reduce_cols, K3 k3_* (bf16) and densemm_*
 (f32, and the fixed-order sum of the bf16 wgrad), K4 poolconv_*, the
-EDT's jfa_pass and its seeds and distances (K5 and K7 alike), and
+EDT's banded jfa_pass and its cluster kernel jfa_cluster (K5 and K7
+alike), and
 canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
 GEMMs, the top kernels by total device time, the operators by device
 time with their input shapes, and the host operators by self CPU time
@@ -78,13 +80,11 @@ GROUPS = {
     "K3 densemm_dgrad_kernel": lambda k: "densemm_dgrad_kernel" in k,
     "K3 densemm_wgrad_kernel": lambda k: "densemm_wgrad_kernel" in k,
     "K3 densemm_reduce_kernel": lambda k: "densemm_reduce_kernel" in k,
-    "K4 poolconv_fwd_kernel": lambda k: "poolconv_fwd_kernel" in k,
-    "K4 poolconv_dgrad_kernel": lambda k: "poolconv_dgrad_kernel" in k,
-    "K4 poolconv_wgrad_kernel": lambda k: "poolconv_wgrad_kernel" in k,
-    "K4 poolconv_reduce_kernel": lambda k: "poolconv_reduce_kernel" in k,
+    "K4 poolconv_fwd": lambda k: "poolconv_fwd" in k,
+    "K4 poolconv_bwd": lambda k: "poolconv_bwd" in k,
+    "K4 poolconv_reduce": lambda k: "poolconv_reduce" in k,
     "K5/K7 jfa_pass": lambda k: "jfa_pass" in k,
-    "K5/K7 jfa_init + jfa_finish": lambda k: "jfa_init" in k or
-    "jfa_finish" in k,
+    "K5/K7 jfa_cluster": lambda k: "jfa_cluster" in k,
     "K6/K8 canny_kernel": lambda k: "canny_kernel" in k,
 }
 
@@ -150,6 +150,9 @@ def main(argv=None):
         state, row = step(state, raw)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    # the tensors' own bytes at their peak, without the allocator's
+    # rounding of blocks, which depends on what was allocated before
+    peak_requested = torch.cuda.memory_stats().get("requested_bytes.all.peak")
     # the wall time without the profiler, whose host overhead is large here
     t0 = time.time()
     for _ in range(args.iters):
@@ -199,6 +202,7 @@ def main(argv=None):
         "dense_trunk_on": model.uses_dense_trunk(P, P),
         "tail_mode": model.tail_mode(P, P),
         "max_memory_allocated_bytes": peak,
+        "max_memory_requested_bytes": peak_requested,
         "batch": args.batch,
         "iters": args.iters,
         "wall_ms_per_step": wall_ms,
