@@ -16,9 +16,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             kernel, the plain version and one cuDNN bf16 conv of the same z
             (library_ms, a yardstick the port never calls) beside the
             least time the card could take (bound_ms). Each k1 row names
-            the design that took it (convseg.k1_design): "tma_wgmma" (the
-            TMA-fed wgmma kernel, C == Cout <= 256) or "pr1" (the first,
-            WMMA design, convseg_kernel: C = 512).
+            the design that took it (convseg.K1_DESIGN): "tma_wgmma", the
+            TMA-fed wgmma kernel, at every C, and its work item (pixels,
+            output channels; convseg.K1_ITEMS): 64 x 256 at C = 512.
 3. slice, slice_wide - ISPRS whole-scene inference of ResUnet-a d6 at full
             width (5 classes, 256 px, multitask, bf16, seeded random
             weights): a 2048x2048 uint8 scene through
@@ -55,13 +55,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             256^2 a 16 x 5-class batch gives them (Voronoi blobs, uniform
             noise, an all-zero and an all-one plane); no PyTorch call
             computes either, so library_ms is null. The k5 row names the
-            EDT's design (distance.plan: "cluster" here) and its launches.
+            EDT's design (distance.plan: "cluster" here) and its launches;
+            the k6 row Canny's (two passes: a tiled stencil kernel, then
+            the hysteresis kernel, which returns at once on planes pass 1
+            did not flag), its launches, ms, bound and share of it.
 7. k8, k5_layouts_256, k5_512, k7 - the row-tiled Canny and the EDT on
             the planes of the large patches, bit for bit against their
             plain versions (K7's band decomposition) and the whole-plane
             plain versions: K8 on the 40 planes of 512^2 an 8 x 5-class
             batch gives and the 10 of 1024^2 of a 2 x 5-class batch, timed
-            at its default tile and at others (ms_by_tile); the EDT
+            at its default tile and at others (ms_by_tile), with its
+            launches and share of the bound; the EDT
             kernels, which serve K5's planes and K7's alike, on those and
             the 80 of 256^2, in their default design ("tail" at 512^2 and
             1024^2) and in every design and tile of EDT_LAYOUTS
@@ -75,7 +79,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             launches, 44 K2 calls of 4 launches, 12 K3 calls each way (1
             launch a call forward; 3 backward, 4 where a part is
             upsampled), 3 K4 calls each way (1 and 2 launches), one EDT
-            call of one launch and one K6 launch; finite metric rows; the
+            call of one launch and one K6 call of 2 launches (pass 1 and
+            pass 2); finite metric rows; the
             loss after 10 steps on one batch below the first step's. Times
             the warm steps (median, with a synchronise). Then 3 steps of
             the NHWC routing (dense_trunk=False: no K3, no K4), and one
@@ -87,7 +92,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             512 px, batch 8, 5 steps, and 1024 px, batch 2, 4 steps,
             without remat: per step the 256 px step's K1-K4 launches, and
             on the label side one EDT call of 8 launches (512 px) or 9
-            (1024 px) and one K8 launch (no K6); finite rows, a falling
+            (1024 px) and one K8 call of 2 launches (no K6); finite rows, a
+            falling
             loss, the median warm step, patches/s and peak memory.
 10. train_wide, train_wide_1024, train_seg2, train_tail1 - the reference's
             opt-in train modes (ResUnetA arguments, TRAIN_MODES), 3 steps
@@ -317,7 +323,8 @@ def phase_k1(convseg, F):
         bound_ms, bound_by, flops, nbytes = k1_bound(N, S, S, C)
         row = {"phase": "k1", "N": N, "H": S, "W": S, "C": C, "d": d,
                "on_path": on_path, "path": path,
-               "design": convseg.k1_design(C, C), "max_abs_err": max_err,
+               "design": convseg.K1_DESIGN,
+               "work_item": list(convseg.K1_ITEMS[C]), "max_abs_err": max_err,
                "tolerance": f"|err| <= {K1_ATOL} + {K1_RTOL}*|plain|",
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -770,6 +777,11 @@ EDT_LAYOUTS = {256: ({"design": "tail"}, {"design": "tail", "tile": 4}),
                512: ({"tile": 8},), 1024: ({"tile": 4},)}
 
 
+# Canny's design (canny.cu): pass 1 a tiled stencil kernel, pass 2 the
+# band kernel with the hysteresis, on planes pass 1 flagged
+CANNY_DESIGN = "two_pass"
+
+
 # class planes a train batch gives the label kernels, by patch: Voronoi
 # samples x 5 classes and uniform-noise planes, beside an all-zero and an
 # all-one plane (80 planes at 256^2 as at batch 16, 40 at 512^2 as at
@@ -817,8 +829,8 @@ def phase_labels(distance, boundary):
         plain_ms = cuda_ms(lambda: ref(planes), reps=2, warmup=1)
         row = {"phase": name, **label_row(planes, ms, plain_ms, ops),
                "launches_per_call": launches}
-        if name == "k5":
-            row["design"] = distance.plan(H, W)["design"]
+        row["design"] = distance.plan(H, W)["design"] if name == "k5" \
+            else CANNY_DESIGN
         emit(row)
         rows[name] = row
     return rows
@@ -887,7 +899,9 @@ def phase_labels_tiled(distance, boundary):
         planes = label_planes(size)
         H, W = planes.shape[1:]
         tile = boundary.default_tile(H, W)
+        n0 = boundary.TILED_LAUNCHES
         got = boundary.boundary_label(planes)
+        launches = boundary.TILED_LAUNCHES - n0
         same(f"K8 at {size}^2", got,
              boundary.boundary_label_tiled_reference(planes, tile),
              boundary.boundary_label_reference(planes))
@@ -904,6 +918,7 @@ def phase_labels_tiled(distance, boundary):
                       max(0, r - boundary.HALO) for r in range(0, H, tile))
         row = {"phase": "k8", **label_row(planes, ms, plain_ms,
                                           50 * planes.numel()),
+               "design": CANNY_DESIGN, "launches_per_call": launches,
                "tile": tile, "ms_by_tile": by_tile,
                "recomputed_rows_share": windows / H}
         emit(row)
@@ -1105,11 +1120,12 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
 # the whole plane in one cluster launch; 512^2 and 1024^2: the leading
 # pass and the steps above 4 banded, 7 and 8 launches, and one fused
 # tail; the reference gives 256^2 and 512^2 planes to K5, larger ones to
-# K7, the port all to jfa.cu) and one Canny launch (K6 up to 384^2, K8
-# above) over all the batch's class planes
-LABEL_LAUNCHES = {256: {"K5/K7": 1, "K6": 1, "K8": 0},
-                  512: {"K5/K7": 8, "K6": 0, "K8": 1},
-                  1024: {"K5/K7": 9, "K6": 0, "K8": 1}}
+# K7, the port all to jfa.cu) and one Canny call of 2 launches, pass 1 and
+# pass 2 (boundary.PASSES; K6 up to 384^2, K8 above) over all the batch's
+# class planes
+LABEL_LAUNCHES = {256: {"K5/K7": 1, "K6": 2, "K8": 0},
+                  512: {"K5/K7": 8, "K6": 0, "K8": 2},
+                  1024: {"K5/K7": 9, "K6": 0, "K8": 2}}
 
 
 def expected_counts(steps, dense, patch=PATCH, segments=44, k1=True,
@@ -1477,17 +1493,20 @@ def main():
              "80 planes of 256^2 (at_512: one call of 8 launches over 40 "
              "planes of 512^2, an 8-patch 512 px step; at_1024: one of 9 "
              "over 10 planes of 1024^2, a 2-patch 1024 px step)"),
-            ("K6", "k6", "K6 boundary_label (Canny(0,1) + cross dilation)",
+            ("K6", "k6", "K6 boundary_label (Canny(0,1) + cross dilation: "
+             "a tiled stencil pass, then the hysteresis pass, which "
+             "computes only flagged planes)",
              "resuneta_torch/kernels/csrc/canny.cu",
              "resuneta_tpu/ops/pallas/canny.py:227",
-             "one 16-patch 256 px train step: one launch over 80 planes of "
-             "256^2"),
+             "one 16-patch 256 px train step: one call of 2 launches over 80 "
+             "planes of 256^2"),
             ("K8", "k8_512", "K8 boundary_label, row-tiled (Canny(0,1) + "
-             "cross dilation per band of rows, 35-row halo)",
+             "cross dilation: the tiled stencil pass, then the hysteresis "
+             "pass per band of rows, 35-row halo, on flagged planes only)",
              "resuneta_torch/kernels/csrc/canny.cu",
              "resuneta_tpu/ops/pallas/canny.py:257",
-             "one 8-patch 512 px train step: one launch over 40 planes of "
-             "512^2 (at_1024: a 2-patch 1024 px step, 10 planes of "
+             "one 8-patch 512 px train step: one call of 2 launches over 40 "
+             "planes of 512^2 (at_1024: a 2-patch 1024 px step, 10 planes of "
              "1024^2)")):
         r = labels[row_key]
         n, by = launched(key)
@@ -1500,15 +1519,15 @@ def main():
             "library_ms": None, "library": r["library"], "per": unit}
         sizes = {"K5/K7": (("at_512", "k5_512"), ("at_1024", "k7")),
                  "K8": (("at_1024", "k8_1024"),), "K6": ()}[key]
-        fields = ("ms", "plain_ms", "bound_ms", "bound_by") + (
-            ("design", "launches_per_call", "share_of_bound",
-             "ms_by_design") if key == "K5/K7" else ("tile", "ms_by_tile"))
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "design",
+                  "launches_per_call", "share_of_bound") + (
+            ("ms_by_design",) if key == "K5/K7" else ("tile", "ms_by_tile"))
         for at, k in sizes:
             entry[at] = {f: labels[k][f] for f in fields}
+        entry.update({f: r[f] for f in ("design", "share_of_bound",
+                                        "launches_per_call")})
         if key == "K5/K7":
             entry["also_replaces"] = "resuneta_tpu/ops/pallas/jfa.py:221"
-            entry["design"] = r["design"]
-            entry["share_of_bound"] = r["share_of_bound"]
             entry["ms_by_design"] = labels["k5_layouts_256"]["ms_by_design"]
         kernels.append(entry)
     emit({"kernels": kernels + wide_kernels})

@@ -21,95 +21,73 @@
 // 288 at C = 64 (at the ridge: bytes bound by a hair) and 576 at C = 128
 // (tensor-core bound).
 //
-// Two designs, chosen in convseg_forward by the channels alone:
-//
-// * C == Cout in {32, 64, 128} (every segment of the default model) and
-//   256 (the opt-in wide tier's RB(256)): tma_fwd_kernel, TMA-fed,
-//   mbarrier-pipelined wgmma. An implicit GEMM with M = a tile of 128
-//   output pixels (a rectangle of one image, 1 x 128 at W >= 128, 2 x 64
-//   at W = 64: sm90::Geo), N = Cout (at C = 256 one half of it a block,
-//   the other half on another), K = 9 taps x C, two consumer warpgroups of 64 pixels and one producer warp whose
-//   one thread keeps TMA loads in flight through a ring of stages. A K
-//   step is one stencil row ky and CB channels: the producer loads the
-//   raw x box of that row, BH rows x (BW + 2d) columns from (h0 + (ky-1)d,
-//   w0 - d), unswizzled and in x's type. w (HWIO w[ky, kx] is C x Cout
-//   with Cout contiguous: B is MN-major as it lies) stays in shared memory
-//   for the block's life at C <= 64 (18 or 72 KB, loaded once), and comes
-//   with each stage, the step's three taps, at C >= 128 (288 KB in all at
-//   C = 128).
-//   The consumers form z from the box once, in shared memory (__fmaf_rn;
-//   the ReLU and the one bf16 rounding in one cvt.rn.relu.bf16x2; a mask
-//   on the box's image coordinates, since TMA's zero fill gives x = 0, not
-//   z = 0), write it in the swizzled K-major layout wgmma reads, fence the
-//   generic proxy against the async one, meet at a barrier, and the three
-//   taps read it at row offsets kx*d. So x is read from device memory
-//   about once and from L2 3 (BW + 2d) / BW times, z is formed 3 (BW +
-//   2d) / BW times per element instead of 9, and never reaches device
-//   memory; the next step's z is formed while this step's wgmma runs
-//   (three z buffers, one barrier a step). Where BW + 2d > 256 (TMA's box
-//   limit), a warpgroup's 64 pixels span image rows (W <= 32) or the halo
-//   plan does not fit shared memory, a K step is one tap and its box is
-//   the tile itself (HALO = 0). Blocks are persistent (one wave); the
-//   epilogue adds the bias in f32 and writes y straight from the
-//   accumulators (4- or 8-byte stores, no barrier), masking the pixels a
-//   ragged tile overhangs.
-//   At C = 32 and 64 the bound is bytes (x once in, y once out), at C =
-//   128 the tensor cores; the kernel runs at 3-4x its bound on an H100.
-//   What paces it is one block's critical path a step (wait for the box,
-//   form z, barrier, issue the wgmma) and its stores, not the ring's depth
-//   or the L2 reads: tools/torch_k1_ablate.py times the kernel with each
-//   part taken out, PERF.md has the readings.
-//
-// * Anything else the wrapper takes (C = 512, the wide tier's RB(512) at
-//   16x16; C != Cout): convseg_kernel, the first design, kept as it is. WMMA
-//   bf16 16x16x16 with f32 accumulators: a block owns 128 consecutive
-//   output pixels (row-major over n, h, w) by BN output channels; each K
-//   step gathers, for one tap and 32 input channels, the tap-shifted input
-//   pixels with 16-byte loads, forms z while staging them into shared
-//   memory and zero-fills pixels outside the image, so every input element
-//   is transformed 9 times and re-read from L2 9 times. One register
-//   stage; no TMA, no wgmma.
+// One design, tma_fwd_kernel, for C == Cout in {32, 64, 128} (every
+// segment of the default model), 256 (the opt-in wide tier's RB(256)) and
+// 512 (the wide eval tier's RB(512)); convseg_forward refuses anything
+// else. TMA-fed, mbarrier-pipelined wgmma: an implicit GEMM with M = a
+// tile of 128 output pixels (a rectangle of one image, 1 x 128 at W >=
+// 128, 2 x 64 at W = 64: sm90::Geo; 64 pixels at C = 512, below), N = Cout
+// (at C = 256 one 128-channel half of it a work item, the other half
+// another), K = 9 taps x C, two consumer warpgroups of 64 pixels and one
+// producer warp whose one thread keeps TMA loads in flight through a ring
+// of stages. A K step is one stencil row ky and CB
+// channels: the producer loads the raw x box of that row, BH rows x (BW +
+// 2d) columns from (h0 + (ky-1)d, w0 - d), unswizzled and in x's type. w
+// (HWIO w[ky, kx] is C x Cout with Cout contiguous: B is MN-major as it
+// lies) stays in shared memory for the block's life at C <= 64 (18 or 72
+// KB, loaded once), and comes with each stage, the step's taps of the
+// item's 128 (or C) output channels, at C >= 128.
+// The consumers form z from the box once, in shared memory (__fmaf_rn; the
+// ReLU and the one bf16 rounding in one cvt.rn.relu.bf16x2; a mask on the
+// box's image coordinates, since TMA's zero fill gives x = 0, not z = 0),
+// write it in the swizzled K-major layout wgmma reads, fence the generic
+// proxy against the async one, meet at a barrier, and the three taps read
+// it at row offsets kx*d. So x is read from device memory about once and
+// from L2 3 (BW + 2d) / BW times, z is formed 3 (BW + 2d) / BW times per
+// element instead of 9, and never reaches device memory; the next step's z
+// is formed while this step's wgmma runs (three z buffers, one barrier a
+// step). Where BW + 2d > 256 (TMA's box limit), a warpgroup's 64 pixels
+// span image rows (W <= 32) or the halo plan does not fit shared memory, a
+// K step is one tap and its box is the tile itself (HALO = 0). Blocks are
+// persistent (one wave); the epilogue adds the bias in f32 and writes y
+// straight from the accumulators (4- or 8-byte stores, no barrier),
+// masking the pixels a ragged tile overhangs.
+// At C = 32 and 64 the bound is bytes (x once in, y once out), at C >= 128
+// the tensor cores; the kernel runs at 3-4x its bound on an H100. What
+// paces it is one block's critical path a step (wait for the box, form z,
+// barrier, issue the wgmma) and its stores, not the ring's depth or the L2
+// reads: tools/torch_k1_ablate.py times the kernel with each part taken
+// out, PERF.md has the readings.
+// C = 512 (RB(512) at 16^2; W <= 32: HALO = 0, a K step one tap and 64
+// channels, 72 steps a work item): a work item is 64 pixels x 256 output
+// channels (SPLIT_N), the two consumer warpgroups on the same z, each on
+// 128 channels (64 accumulators a thread, as at C = 256), so z is formed
+// once for 256 output channels: twice for each x element and tap, where
+// 128-pixel items of 128 channels would form it four times. A stage is the x box (64 px x 64 ch, 8
+// KB in bf16, 16 KB in f32) and four w boxes of 64 x 64 (32 KB), held
+// until the stage's wgmma is done, so the ring is four stages deep
+// (fwd_stages); the z buffers are 8 KB each: 185 KB (bf16) or 217 KB
+// (f32) of the 220 KB a block may have beside its 6 KB of static scale,
+// shift and bias, so one block an SM. A 32-patch batch has 128 pixel tiles
+// (4 x 16) x 2 halves of N = 256 work items; the grid is one block an SM
+// (132), each walking items blockIdx.x + k * 132: 124 blocks take two, 8
+// one (1.94 waves). What paces it: tools/torch_k1_ablate.py --c512
+// (PERF.md has the readings).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BM = 128;       // output pixels per block
-constexpr int BK = 32;        // input channels per K step
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int A_LD = BK + 8;  // padded smem row, a multiple of 8 elements
-constexpr int MAX_C = 512;
-constexpr int A_CHUNKS = BM * BK / 8 / THREADS;  // 8-channel chunks a thread stages
-
+// y's stores: two output channels of T from f32.
 template <typename T>
 struct Io;
 
 template <>
 struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-    uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
   static __device__ __forceinline__ void store2(__nv_bfloat16* p, float u, float v) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(u, v);
   }
@@ -117,201 +95,12 @@ struct Io<__nv_bfloat16> {
 
 template <>
 struct Io<float> {
-  static __device__ __forceinline__ void load8(const float* p, float* v) {
-    float4 lo = *reinterpret_cast<const float4*>(p);
-    float4 hi = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-  }
-  static __device__ __forceinline__ void store8(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
   static __device__ __forceinline__ void store2(float* p, float u, float v) {
     *reinterpret_cast<float2*>(p) = make_float2(u, v);
   }
 };
 
-template <typename T, int BN>
-__global__ void __launch_bounds__(THREADS)
-convseg_kernel(const T* __restrict__ x, const float* __restrict__ a,
-               const float* __restrict__ b, const __nv_bfloat16* __restrict__ w,
-               const float* __restrict__ bias, T* __restrict__ y,
-               int N, int H, int W, int C, int Cout, int d, int act) {
-  constexpr int B_LD = BN + 8;
-  constexpr int WARP_N = BN / 2;  // output channels per warp
-  constexpr int FM = 2;           // 32 pixel rows per warp, 16 per fragment
-  constexpr int FN = WARP_N / 16;
-  constexpr int B_CHUNKS_ALL = BK * BN / 8;
-  constexpr int B_CHUNKS = (B_CHUNKS_ALL + THREADS - 1) / THREADS;
-
-  __shared__ __align__(128) __nv_bfloat16 As[BM * A_LD];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
-  __shared__ float sa[MAX_C], sb[MAX_C];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int warp_m = warp >> 1, warp_n = warp & 1;
-  const long long M = (long long)N * H * W;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int co0 = blockIdx.y * BN;
-
-  for (int i = tid; i < C; i += THREADS) {
-    sa[i] = a[i];
-    sb[i] = b[i];
-  }
-
-  // The pixels this thread stages: chunk -> (tile row, 8-channel offset).
-  int pn[A_CHUNKS], ph[A_CHUNKS], pw[A_CHUNKS], pc[A_CHUNKS];
-  bool pin[A_CHUNKS];
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    const int chunk = tid + i * THREADS;
-    const long long m = m0 + chunk / (BK / 8);
-    pc[i] = (chunk % (BK / 8)) * 8;
-    pin[i] = m < M;
-    const long long mm = pin[i] ? m : 0;
-    pw[i] = (int)(mm % W);
-    const long long t = mm / W;
-    ph[i] = (int)(t % H);
-    pn[i] = (int)(t / H);
-  }
-
-  const int kc_steps = C / BK;
-  const int k_steps = 9 * kc_steps;
-
-  float ra[A_CHUNKS][8];
-  bool rv[A_CHUNKS];
-  uint4 rb[B_CHUNKS];
-
-  // Issue the global loads of K step ks into registers.
-  auto load_global = [&](int ks) {
-    const int tap = ks / kc_steps;
-    const int c0 = (ks - tap * kc_steps) * BK;
-    const int dy = (tap / 3 - 1) * d, dx = (tap % 3 - 1) * d;
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int hs = ph[i] + dy, ws = pw[i] + dx;
-      rv[i] = pin[i] && hs >= 0 && hs < H && ws >= 0 && ws < W;
-      if (rv[i]) {
-        const long long off = (((long long)pn[i] * H + hs) * W + ws) * C + c0 + pc[i];
-        Io<T>::load8(x + off, ra[i]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < B_CHUNKS; ++j) {
-      const int chunk = tid + j * THREADS;
-      if (chunk < B_CHUNKS_ALL) {
-        const int row = chunk / (BN / 8), col = (chunk % (BN / 8)) * 8;
-        const long long off = (long long)(tap * C + c0 + row) * Cout + co0 + col;
-        rb[j] = *reinterpret_cast<const uint4*>(w + off);
-      }
-    }
-  };
-
-  // z = bf16(act(x*a + b)) (0 outside the image) and the weights into smem.
-  auto store_smem = [&](int ks) {
-    const int c0 = (ks % kc_steps) * BK;
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int r = (tid + i * THREADS) / (BK / 8);
-      float z[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = c0 + pc[i] + e;
-        float v = __fmaf_rn(ra[i][e], sa[c], sb[c]);
-        if (act) v = fmaxf(v, 0.0f);
-        z[e] = rv[i] ? v : 0.0f;
-      }
-      Io<__nv_bfloat16>::store8(&As[r * A_LD + pc[i]], z);
-    }
-#pragma unroll
-    for (int j = 0; j < B_CHUNKS; ++j) {
-      const int chunk = tid + j * THREADS;
-      if (chunk < B_CHUNKS_ALL) {
-        const int row = chunk / (BN / 8), col = (chunk % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(&Bs[row * B_LD + col]) = rb[j];
-      }
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  __syncthreads();  // sa, sb
-  load_global(0);
-  for (int ks = 0; ks < k_steps; ++ks) {
-    store_smem(ks);
-    __syncthreads();
-    if (ks + 1 < k_steps) load_global(ks + 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], &As[(warp_m * 32 + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * B_LD + warp_n * WARP_N + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: each fragment through a per-warp 16x16 f32 scratch, then
-  // + bias in f32 and one 8-element store per lane.
-  float* cs = Cs[warp];
-  const int r = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + warp_m * 32 + i * 16 + r;
-      const int co = co0 + warp_n * WARP_N + j * 16 + cc;
-      if (m < M) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] = cs[r * 16 + cc + e] + bias[co + e];
-        Io<T>::store8(y + m * Cout + co, v);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const float* a, const float* b, const __nv_bfloat16* w,
-                   const float* bias, void* y, int N, int H, int W, int C, int Cout, int d,
-                   int act, cudaStream_t stream) {
-  const long long M = (long long)N * H * W;
-  const unsigned gx = (unsigned)((M + BM - 1) / BM);
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  if (Cout % 128 == 0) {
-    convseg_kernel<T, 128><<<dim3(gx, Cout / 128), THREADS, 0, stream>>>(
-        xt, a, b, w, bias, yt, N, H, W, C, Cout, d, act);
-  } else if (Cout % 64 == 0) {
-    convseg_kernel<T, 64><<<dim3(gx, Cout / 64), THREADS, 0, stream>>>(
-        xt, a, b, w, bias, yt, N, H, W, C, Cout, d, act);
-  } else {
-    convseg_kernel<T, 32><<<dim3(gx, Cout / 32), THREADS, 0, stream>>>(
-        xt, a, b, w, bias, yt, N, H, W, C, Cout, d, act);
-  }
-  return cudaGetLastError();
-}
-
-
-// ------------------------------- the Hopper kernel (C == Cout in {32, 64, 128})
+// ---------------------------- the Hopper kernel (C == Cout in {32, ..., 512})
 
 using sm90::align1024;
 using sm90::consumers_sync;
@@ -319,30 +108,48 @@ using sm90::Geo;
 
 template <int C>
 struct FwdShape {
-  static_assert(C == 32 || C == 64 || C == 128 || C == 256, "the TMA kernel's channel counts");
+  static_assert(C == 32 || C == 64 || C == 128 || C == 256 || C == 512,
+                "the TMA kernel's channel counts");
   static constexpr int CB = C < 64 ? 32 : 64;   // channels a K step: one swizzle row of z
   static constexpr int SW = CB * 2;             // z's row bytes: the swizzle (64 or 128)
   static constexpr uint32_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma descriptor layout
   static constexpr int KC = C / CB;             // channel slices of a stencil row
-  // output channels a block computes (the wgmma's N): all, or at C = 256
-  // one half of them, the tile's other half on another block
+  // A work item: PIX pixels x NI output channels. Up to C = 256 128
+  // pixels, a warpgroup each 64 of them, on all C channels or (C = 256)
+  // one 128-channel half, the other half another item's. At C = 512
+  // (SPLIT_N) 64 pixels x 256 channels, the two warpgroups on the same z,
+  // each on 128 channels, so z is formed once for 256 of them. A
+  // warpgroup's N (the wgmma's) is NT, at most 128: 128 f32 accumulators a
+  // thread would spill.
+  static constexpr bool SPLIT_N = C == 512;
+  static constexpr int PIX = SPLIT_N ? 64 : 128;
   static constexpr int NT = C < 256 ? C : 128;
-  static constexpr int NSPLIT = C / NT;
+  static constexpr int NI = SPLIT_N ? 2 * NT : NT;
+  static constexpr int NSPLIT = C / NI;
   static constexpr int NB = NT / CB;            // w boxes across NT
+  static constexpr int NB_ITEM = NI / CB;       // and across NI
   static constexpr int B_REGION = CB * SW;      // a w box: CB rows (c) x CB columns (o)
   // C <= 64: one box a tap, and all nine taps (18 or 72 KB) stay in shared
-  // memory for the block's life; C = 128: each stage brings its taps' w
+  // memory for the block's life; C >= 128: each stage brings its taps' w
   static constexpr bool W_RESIDENT = KC == 1;
   static constexpr int W_BYTES = 9 * B_REGION;
   static constexpr int CPR = CB / 8;            // 16-byte chunks of z a pixel
   static constexpr int CONSUMERS = 256;         // two warpgroups
   static constexpr int WARPS = CONSUMERS / 32;
   static constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
-  // the ring: two stages keep the box loads ahead (three or four measured
-  // no faster on an H100, PERF.md)
+  // the ring: two stages keep the box loads ahead up to C = 256 (three or
+  // four measured no faster on an H100, PERF.md); C = 512: fwd_stages
   static constexpr int STAGES = 2;
   static_assert(B_REGION % 1024 == 0, "swizzle atoms stay aligned");
 };
+
+// The ring's depth: at C = 512 a stage holds its w boxes until the
+// stage's wgmma is done, and four stages keep the loads ahead (two are
+// ~45% slower, three within 2% of four: tools/torch_k1_ablate.py --c512).
+template <typename T, int C>
+__host__ __device__ constexpr int fwd_stages() {
+  return C < 512 ? FwdShape<C>::STAGES : 4;
+}
 
 // Two f32 values rounded to one bf16x2 word (lo in the low half), through
 // the ReLU when `relu`: cvt's .relu clamps the rounded value, which is the
@@ -364,16 +171,16 @@ __device__ __forceinline__ float elem(const uint32_t* wd, int e) {
   return __uint_as_float((e & 1) ? wd[e >> 1] & 0xFFFF0000u : wd[e >> 1] << 16);
 }
 
-// A block walks tiles blockIdx.x, + gridDim.x, ... (persistent: one wave
-// of resident blocks), its producer running ahead across tiles; at C =
-// 256 a tile is (128 pixels, one half of the output channels), the two
-// halves of a pixel tile neighbours in the order, so the second finds its
-// boxes in L2. K step ks
+// A block walks work items blockIdx.x, + gridDim.x, ... (persistent: one
+// wave of resident blocks), its producer running ahead across items; at C
+// >= 256 an item is (128 pixels, one 128-channel part of the output
+// channels), the NSPLIT parts of a pixel tile neighbours in the order, so
+// the later ones find their boxes in L2. K step ks
 // of a tile is (step, kc): with HALO step = ky and the raw box spans the
 // BW + 2d columns from w0 - d that the three taps of the row read; else
 // step = the tap and the box is the tile shifted by it. Dynamic shared
 // memory: at C <= 64 the nine taps of w; STAGES stages of (the raw box,
-// raw_room bytes; at C = 128 the step's taps of w); then three z buffers
+// raw_room bytes; at C >= 128 the step's taps of w); then three z buffers
 // of z_room bytes.
 template <typename T, int C, int HALO>
 __global__ void __launch_bounds__(FwdShape<C>::THREADS, 1)
@@ -387,15 +194,16 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
   const int bw = 1 << geo.bw_log2;
   const int box_w = HALO ? bw + 2 * d : bw;
   const int box_pix = geo.bh * box_w;
-  constexpr int STAGE_W = S::W_RESIDENT ? 0 : TAPS * S::NB * S::B_REGION;
+  constexpr int STAGE_W = S::W_RESIDENT ? 0 : TAPS * S::NB_ITEM * S::B_REGION;
   const int stage_bytes = raw_room + STAGE_W;
   // what TMA brings a stage: the box (not its rounded room) and the taps' w
   const uint32_t stage_tx = box_pix * S::CB * (int)sizeof(T) + STAGE_W;
   extern __shared__ unsigned char dsmem[];
   unsigned char* wsm = align1024(dsmem);  // W_RESIDENT: w's nine taps
   unsigned char* smem = wsm + (S::W_RESIDENT ? S::W_BYTES : 0);
-  unsigned char* zbase = smem + S::STAGES * stage_bytes;
-  __shared__ __align__(8) uint64_t full[S::STAGES], empty[S::STAGES], w_full;
+  constexpr int STAGES = fwd_stages<T, C>();
+  unsigned char* zbase = smem + STAGES * stage_bytes;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], w_full;
   __shared__ float sa[C], sb[C], sbias[C];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -406,7 +214,7 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
   }
   if (tid == 0) {
     if (S::W_RESIDENT) sm90::mbar_init(&w_full, 1);
-    sm90::ring_init(full, empty, S::STAGES, S::WARPS);
+    sm90::ring_init(full, empty, STAGES, S::WARPS);
   }
   __syncthreads();
 
@@ -421,10 +229,10 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
       for (long long t = blockIdx.x; t < geo.tiles * S::NSPLIT; t += gridDim.x) {
         int n, h0, w0;
         sm90::tile_origin(geo, t / S::NSPLIT, n, h0, w0);
-        const int n0 = (int)(t % S::NSPLIT) * S::NT;  // the block's first output channel
+        const int n0 = (int)(t % S::NSPLIT) * S::NI;  // the item's first output channel
         for (int ks = 0; ks < KSTEPS; ++ks, ++gs) {
-          const int s = gs % S::STAGES;
-          sm90::ring_acquire(full, empty, s, gs / S::STAGES, stage_tx);
+          const int s = gs % STAGES;
+          sm90::ring_acquire(full, empty, s, gs / STAGES, stage_tx);
           unsigned char* st = smem + s * stage_bytes;
           const int step = ks / S::KC, kc = ks - step * S::KC;
           const int ky = HALO ? step : step / 3;
@@ -433,8 +241,8 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
           if (!S::W_RESIDENT)
             for (int tx = 0; tx < TAPS; ++tx)
 #pragma unroll
-              for (int nb = 0; nb < S::NB; ++nb)
-                sm90::tma_load_3d(st + raw_room + (tx * S::NB + nb) * S::B_REGION, &map_w,
+              for (int nb = 0; nb < S::NB_ITEM; ++nb)
+                sm90::tma_load_3d(st + raw_room + (tx * S::NB_ITEM + nb) * S::B_REGION, &map_w,
                                   &full[s], n0 + nb * S::CB, kc * S::CB,
                                   HALO ? ky * 3 + tx : step);
         }
@@ -443,24 +251,25 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
     return;
   }
 
-  // consumers: warpgroup wg takes pixels [64 wg, 64 wg + 64) of a tile:
-  // z rows from arow (with HALO for the tap at column offset -d; tap kx
-  // reads kx*d rows further). Each thread forms one 16-byte chunk (ch) of
-  // z in every pixel it takes.
+  // consumers: warpgroup wg takes pixels [wpix, wpix + 64) of a tile and
+  // its channels [wch, wch + NT) of the item: z rows from arow (with HALO
+  // for the tap at column offset -d; tap kx reads kx*d rows further). Each
+  // thread forms one 16-byte chunk (ch) of z in every pixel it takes.
   const int wg = warp >> 2;
-  const int arow = HALO ? ((wg * 64) >> geo.bw_log2) * box_w + ((wg * 64) & (bw - 1)) : wg * 64;
+  const int wpix = S::SPLIT_N ? 0 : wg * 64, wch = S::SPLIT_N ? wg * S::NT : 0;
+  const int arow = HALO ? (wpix >> geo.bw_log2) * box_w + (wpix & (bw - 1)) : wpix;
   const int ch = tid % S::CPR;
   if (S::W_RESIDENT) sm90::mbar_wait(&w_full, 0);
   int gs = 0;
   for (long long t = blockIdx.x; t < geo.tiles * S::NSPLIT; t += gridDim.x) {
     int n, h0, w0;
     sm90::tile_origin(geo, t / S::NSPLIT, n, h0, w0);
-    const int n0 = (int)(t % S::NSPLIT) * S::NT;
+    const int n0 = (int)(t % S::NSPLIT) * S::NI;
     float acc[S::NT / 2];
 #pragma unroll
     for (int i = 0; i < S::NT / 2; ++i) acc[i] = 0.0f;
     for (int ks = 0; ks < KSTEPS; ++ks, ++gs) {
-      const int s = gs % S::STAGES;
+      const int s = gs % STAGES;
       const int step = ks / S::KC, kc = ks - step * S::KC;
       const int ky = HALO ? step : step / 3;
       const int h_org = h0 + (ky - 1) * d;
@@ -474,7 +283,7 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
       }
       const unsigned char* st = smem + s * stage_bytes;
       unsigned char* zs = zbase + (gs % 3) * z_room;
-      sm90::mbar_wait(&full[s], (gs / S::STAGES) & 1);
+      sm90::mbar_wait(&full[s], (gs / STAGES) & 1);
       // z of the box into buffer gs % 3, last read by step gs - 3's wgmma,
       // which every warpgroup waited for before the barrier of step gs - 1.
       // U chunks a pass, their loads issued together.
@@ -520,7 +329,7 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
       if (S::W_RESIDENT && lane == 0) sm90::mbar_arrive(&empty[s]);
       // the step's first tap of w: ky's three (HALO) or the one
       const unsigned char* Bs = S::W_RESIDENT ? wsm + (HALO ? ky * 3 : step) * S::B_REGION
-                                              : st + raw_room;
+                                              : st + raw_room + wch / S::CB * S::B_REGION;
       sm90::wgmma_fence();
 #pragma unroll
       for (int tx = 0; tx < TAPS; ++tx) {
@@ -528,7 +337,7 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
 #pragma unroll
         for (int k = 0; k < S::CB / 16; ++k) {
           const uint64_t da = sm90::desc(As + k * 32, 16, 8 * S::SW, S::LAYOUT);
-          const uint64_t db = sm90::desc(Bs + tx * S::NB * S::B_REGION + k * 16 * S::SW,
+          const uint64_t db = sm90::desc(Bs + tx * S::NB_ITEM * S::B_REGION + k * 16 * S::SW,
                                          S::B_REGION, 8 * S::SW, S::LAYOUT);
           sm90::wgmma<S::NT, 0, 1>(acc, da, db);
         }
@@ -536,16 +345,16 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();
       // else the stage's w is free once its wgmma is done
-      if (!S::W_RESIDENT && ks > 0 && lane == 0) sm90::mbar_arrive(&empty[(gs - 1) % S::STAGES]);
+      if (!S::W_RESIDENT && ks > 0 && lane == 0) sm90::mbar_arrive(&empty[(gs - 1) % STAGES]);
     }
     sm90::wgmma_wait<0>();
-    if (!S::W_RESIDENT && lane == 0) sm90::mbar_arrive(&empty[(gs - 1) % S::STAGES]);
+    if (!S::W_RESIDENT && lane == 0) sm90::mbar_arrive(&empty[(gs - 1) % STAGES]);
 
     // epilogue straight from the accumulators, + bias in f32: this
-    // thread's rows r and r + 8 of the warpgroup's 64, channels n0 + 8j +
-    // 2q + {0, 1}; no barrier, the z buffers are not touched
+    // thread's rows r and r + 8 of the warpgroup's 64, channels n0 + wch +
+    // 8j + 2q + {0, 1}; no barrier, the z buffers are not touched
     const int q = lane & 3;
-    const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+    const int r0 = wpix + (warp & 3) * 16 + (lane >> 2);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = r0 + 8 * hh;
@@ -554,7 +363,7 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
         T* dst = y + (((long long)n * geo.H + h) * geo.W + w) * C;
 #pragma unroll
         for (int j = 0; j < S::NT / 8; ++j) {
-          const int c = n0 + 8 * j + 2 * q;
+          const int c = n0 + wch + 8 * j + 2 * q;
           Io<T>::store2(dst + c, acc[4 * j + 2 * hh] + sbias[c], acc[4 * j + 2 * hh + 1] + sbias[c + 1]);
         }
       }
@@ -564,7 +373,10 @@ tma_fwd_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
 
 // ------------------------------------------------------ the Hopper host side
 
-constexpr int FWD_SMEM_LIMIT = 223 * 1024;  // 227 KB less the static shared memory (3 KB at C = 256)
+// The dynamic shared memory a block may have: 227 KB less the static
+// (sa, sb, sbias: 12 C bytes, and the barriers), counted at C >= 256 (223
+// KB up to C = 256, 220 KB at 512).
+constexpr int fwd_smem_limit(int C) { return 227 * 1024 - 1024 - 12 * (C > 256 ? C : 256); }
 
 int round1024(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 
@@ -577,6 +389,7 @@ struct FwdPlan {
 
 template <typename T, int C>
 FwdPlan fwd_plan(const Geo& g, int d) {
+  constexpr int LIMIT = fwd_smem_limit(C);
   using S = FwdShape<C>;
   const int bw = 1 << g.bw_log2;
   FwdPlan p;
@@ -584,10 +397,10 @@ FwdPlan fwd_plan(const Geo& g, int d) {
     const int box_pix = g.bh * (p.halo ? bw + 2 * d : bw);
     p.raw_room = round1024(box_pix * S::CB * (int)sizeof(T));
     p.z_room = round1024(box_pix * S::SW);
-    const int stage_w = S::W_RESIDENT ? 0 : (p.halo ? 3 : 1) * S::NB * S::B_REGION;
-    p.smem = (S::W_RESIDENT ? S::W_BYTES : 0) + S::STAGES * (p.raw_room + stage_w) +
+    const int stage_w = S::W_RESIDENT ? 0 : (p.halo ? 3 : 1) * S::NB_ITEM * S::B_REGION;
+    p.smem = (S::W_RESIDENT ? S::W_BYTES : 0) + fwd_stages<T, C>() * (p.raw_room + stage_w) +
              3 * p.z_room + 1024;
-    if (p.smem <= FWD_SMEM_LIMIT || !p.halo) return p;
+    if (p.smem <= LIMIT || !p.halo) return p;
   }
 }
 
@@ -599,7 +412,7 @@ cudaError_t launch_tma_fwd(const CUtensorMap& map_x, const CUtensorMap& map_w, c
   using S = FwdShape<C>;
   auto kernel = tma_fwd_kernel<T, C, HALO>;
   long long grid = 0;
-  const cudaError_t err = sm90::wave_blocks(kernel, S::THREADS, p.smem, FWD_SMEM_LIMIT, &grid);
+  const cudaError_t err = sm90::wave_blocks(kernel, S::THREADS, p.smem, fwd_smem_limit(C), &grid);
   if (err != cudaSuccess) return err;
   if (grid > geo.tiles * S::NSPLIT) grid = geo.tiles * S::NSPLIT;
   kernel<<<(unsigned)grid, S::THREADS, p.smem, stream>>>(map_x, map_w, a, b, bias,
@@ -613,7 +426,7 @@ cudaError_t launch_tma(const void* x, const float* a, const float* b, const __nv
                        const float* bias, void* y, int N, int H, int W, int d, int act,
                        cudaStream_t stream) {
   using S = FwdShape<C>;
-  const Geo geo = sm90::make_geo(N, H, W, 128);
+  const Geo geo = sm90::make_geo(N, H, W, S::PIX);
   const FwdPlan p = fwd_plan<T, C>(geo, d);
   const int bw = 1 << geo.bw_log2;
   CUtensorMap map_x, map_w;
@@ -642,6 +455,8 @@ cudaError_t dispatch_tma(int C, const void* x, const float* a, const float* b,
       return launch_tma<T, 128>(x, a, b, w, bias, y, N, H, W, d, act, s);
     case 256:
       return launch_tma<T, 256>(x, a, b, w, bias, y, N, H, W, d, act, s);
+    case 512:
+      return launch_tma<T, 512>(x, a, b, w, bias, y, N, H, W, d, act, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -649,28 +464,22 @@ cudaError_t dispatch_tma(int C, const void* x, const float* a, const float* b,
 
 }  // namespace
 
-// x, y: (N, H, W, C|Cout) contiguous, bf16 (x_is_bf16 = 1) or f32, 16-byte
-// aligned; a, b: (C,) f32; w: (3, 3, C, Cout) HWIO bf16; bias: (Cout,) f32.
-// C and Cout multiples of 32, C <= 512. C == Cout in {32, 64, 128, 256} runs
-// tma_fwd_kernel, anything else convseg_kernel: one launch either
-// way. Returns the cudaError_t of the launch (no other kernel is tried).
+// x, y: (N, H, W, C) contiguous, bf16 (x_is_bf16 = 1) or f32, 16-byte
+// aligned; a, b, bias: (C,) f32; w: (3, 3, C, C) HWIO bf16. C == Cout in
+// {32, 64, 128, 256, 512}, one launch of tma_fwd_kernel; anything else
+// returns cudaErrorInvalidValue. Returns the cudaError_t of the launch.
 extern "C" int convseg_forward(const void* x, const void* a, const void* b, const void* w,
                                const void* bias, void* y, int N, int H, int W, int C,
                                int Cout, int d, int act, int x_is_bf16, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || d <= 0 || C <= 0 || C % BK != 0 || C > MAX_C ||
-      Cout <= 0 || Cout % 32 != 0)
+  if (N <= 0 || H <= 0 || W <= 0 || d <= 0 || C != Cout)
     return (int)cudaErrorInvalidValue;
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
   const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
   const float* biasf = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (C == Cout && (C == 32 || C == 64 || C == 128 || C == 256))
-    err = x_is_bf16 ? dispatch_tma<__nv_bfloat16>(C, x, af, bf, wb, biasf, y, N, H, W, d, act, s)
-                    : dispatch_tma<float>(C, x, af, bf, wb, biasf, y, N, H, W, d, act, s);
-  else
-    err = x_is_bf16 ? launch<__nv_bfloat16>(x, af, bf, wb, biasf, y, N, H, W, C, Cout, d, act, s)
-                    : launch<float>(x, af, bf, wb, biasf, y, N, H, W, C, Cout, d, act, s);
+  const cudaError_t err =
+      x_is_bf16 ? dispatch_tma<__nv_bfloat16>(C, x, af, bf, wb, biasf, y, N, H, W, d, act, s)
+                : dispatch_tma<float>(C, x, af, bf, wb, biasf, y, N, H, W, d, act, s);
   return (int)err;
 }

@@ -15,13 +15,22 @@ see the same four corners with weight 1 (the rest with weight 2 or 0), so
 planes up to 384^2 take K6, the whole-plane kernel (canny.py:227), larger
 ones K8, the row-tiled kernel (canny.py:257), which computes each band of
 rows from a halo of HYSTERESIS_ITERS + 3 rows on each side; `tile=` forces
-K8 on any plane. On a CUDA tensor each launches its CUDA kernel
+K8 on any plane. On a CUDA tensor each launches its CUDA kernels
 (kernels/csrc/canny.cu) or raises; only a tensor on the CPU takes the
 plain versions, `boundary_label_reference` and
 `boundary_label_tiled_reference`. All are bit-identical to the reference
-(ops/boundary.py and the Pallas kernel). `LAUNCHES` counts K6's kernel
-launches and `TILED_LAUNCHES` K8's (one a wrapper call on the card, whatever
-the number of planes), `CALLS` wrapper calls on any device.
+(ops/boundary.py and the Pallas kernel).
+
+On the card a call is two launches, PASSES (after clearing a flag a plane):
+pass 1, the same for K6 and K8, a stencil kernel over tiles of TILE_ROWS x
+TILE_COLS pixels that computes Sobel, NMS and the thresholds once a pixel,
+writes the cross dilation of the strong pixels and flags a plane with a
+weak pixel; pass 2, the band kernel (the whole plane for K6, bands of
+`tile` rows for K8) with the hysteresis rounds, which computes only the
+flagged planes again (`hysteresis` launches it alone). `LAUNCHES` counts
+K6's kernel launches and `TILED_LAUNCHES` K8's (PASSES a wrapper call on
+the card, whatever the number of planes), `CALLS` wrapper calls on any
+device.
 """
 
 import ctypes
@@ -34,6 +43,11 @@ from .distance import shift
 LAUNCHES = 0
 TILED_LAUNCHES = 0
 CALLS = 0
+# launches a call on the card: pass 1 and pass 2
+PASSES = 2
+# pass 1's tile of output pixels (canny.cu TH, TW); it reads 3 pixels
+# around it: 1 for Sobel, 1 for NMS, 1 for the cross dilation
+TILE_ROWS, TILE_COLS = 32, 64
 
 _TG22 = 13573
 HYSTERESIS_ITERS = 32
@@ -181,18 +195,28 @@ def _check_tile(H, W, tile):
 def _kernel(name):
     if name not in _fns:
         fn = getattr(build.load("canny"), name)
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * (
-            6 if name == "canny_boundary_tiled" else 4) + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+            4 if name == "canny_boundary" else 6) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return _fns[name]
+
+
+def _launched(rc, tiled, n):
+    global LAUNCHES, TILED_LAUNCHES
+    if rc != 0:
+        raise RuntimeError(f"canny kernel launch failed: cudaError {rc}")
+    if tiled:
+        TILED_LAUNCHES += n
+    else:
+        LAUNCHES += n
 
 
 def boundary_label(planes, tile=None):
     """Canny(0, 1) + cross dilation of (P, H, W) int32 planes -> (P, H, W)
     f32 {0, 1}: K6 for planes up to 384^2, K8 in bands of `tile` rows
     (default_tile) above that or when `tile` is given."""
-    global CALLS, LAUNCHES, TILED_LAUNCHES
+    global CALLS
     _check(planes)
     P, H, W = planes.shape
     tiled = tile is not None or H * W > MAX_PLANE_ELEMS
@@ -207,20 +231,56 @@ def boundary_label(planes, tile=None):
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
     out = torch.empty((P, H, W), dtype=torch.float32, device=planes.device)
+    flags = torch.empty(P, dtype=torch.int32, device=planes.device)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream(planes.device).cuda_stream
-        args = (planes.data_ptr(), out.data_ptr(), P, H, W)
+        args = (planes.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W)
         if tiled:
             rc = _kernel("canny_boundary_tiled")(*args, tile, HALO,
                                                  HYSTERESIS_ITERS, stream)
         else:
             rc = _kernel("canny_boundary")(*args, HYSTERESIS_ITERS, stream)
-    if rc != 0:
-        raise RuntimeError(f"canny kernel launch failed: cudaError {rc}")
+    _launched(rc, tiled, PASSES)
+    return out
+
+
+def hysteresis(planes, out, flags, tile=None):
+    """Pass 2 alone: every plane p of `planes` with flags[p] != 0 is
+    computed again, hysteresis rounds and all, into out[p] (K6's whole
+    plane, or K8's bands of `tile` rows with tile given); the other planes
+    of `out` are left as they are. On integer planes the flags pass 1 sets
+    are never set, so this runs the path only when a caller asks. On the
+    CPU the flagged planes take the plain versions. Returns out."""
+    _check(planes)
+    P, H, W = planes.shape
+    if out.shape != planes.shape or out.dtype != torch.float32 or \
+            not out.is_contiguous():
+        raise ValueError("out must be (P, H, W) f32, contiguous")
+    if flags.shape != (P,) or flags.dtype != torch.int32:
+        raise ValueError("flags must be (P,) int32")
+    if any(t.device != planes.device for t in (out, flags)):
+        raise ValueError("planes, out and flags must be on one device")
+    tiled = tile is not None
     if tiled:
-        TILED_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+        _check_tile(H, W, tile)
+    elif H * W > SMEM_BYTES:
+        raise ValueError(f"K6's pass 2 keeps a byte a pixel in shared "
+                         f"memory: H * W <= {SMEM_BYTES}, got {H}x{W}")
+    if planes.device.type == "cpu":
+        sel = flags != 0
+        if bool(sel.any()):
+            out[sel] = boundary_label_tiled_reference(planes[sel], tile) \
+                if tiled else boundary_label_reference(planes[sel])
+        return out
+    if planes.device.type != "cuda":
+        raise ValueError(f"no kernel for device {planes.device}")
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        rc = _kernel("canny_hysteresis")(
+            planes.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W,
+            tile if tiled else H, HALO if tiled else 0, HYSTERESIS_ITERS,
+            stream)
+    _launched(rc, tiled, 1)
     return out
 
 

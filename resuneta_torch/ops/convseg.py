@@ -32,12 +32,15 @@ The train segment comes in the reference's two fused modes
   dtype, + bias in x's dtype) with the same K2 backward, which recomputes z
   from x and so does not depend on how the forward ran.
 
-On the card K1 has two designs in one CUDA source (kernels/csrc/convseg.cu),
-chosen by the channels alone (`k1_design`): C == Cout in {32, 64, 128},
-every segment of the default model, and 256 (the opt-in wide tier's
-RB(256)) runs the TMA-fed wgmma kernel that forms z once a stencil row in
-shared memory; C = 512 (the wide eval tier's RB(512)) and C != Cout run
-the first, WMMA kernel ("pr1"). One launch a call either way.
+On the card K1 is one CUDA kernel (kernels/csrc/convseg.cu, design
+`K1_DESIGN`), the TMA-fed wgmma kernel that forms z once a stencil row in
+shared memory, at C == Cout in {32, 64, 128} (every segment of the default
+model), 256 (the opt-in wide tier's RB(256)) and 512 (the wide eval tier's
+RB(512)); a work item is 128 pixels by all C output channels, at C = 256
+by one 128-channel half, at C = 512 64 pixels by one 256-channel half
+(`K1_ITEMS`). One launch a call. The wrapper raises on any other channel
+count on every device: the reference's kernel takes C == Cout only
+(convseg.py:237).
 
 `bn_act_conv` and `segment_bwd` are the wrappers: on a CUDA tensor each
 launches its CUDA kernels (kernels/csrc/convseg.cu, convseg_bwd.cu) or
@@ -65,9 +68,12 @@ BWD_CALLS = 0
 WIDE_BWD_LAUNCHES = 0
 BWDONLY_LAUNCHES = 0
 
-MAX_CHANNELS = 512
-# K1's channel counts (C == Cout) of its TMA-fed wgmma kernel
-TMA_CHANNELS = (32, 64, 128, 256)
+# K1's channel counts (C == Cout) and design: the TMA-fed wgmma kernel, its
+# work item (pixels, output channels) by C (convseg.cu FwdShape PIX, NI)
+K1_CHANNELS = (32, 64, 128, 256, 512)
+K1_DESIGN = "tma_wgmma"
+K1_ITEMS = {32: (128, 32), 64: (128, 64), 128: (128, 128), 256: (128, 128),
+            512: (64, 256)}
 # the backward's channel counts: K2's narrow tier and K9's wide one
 BWD_CHANNELS = (32, 64, 128, 256)
 # the reference's wide ceilings (convseg.py MAX_CHANNELS_FWD, _BWD_WIDE)
@@ -130,14 +136,6 @@ def bn_act_conv_reference(x, a, b, w, bias, *, dilation, act=True):
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def k1_design(C, Cout):
-    """Which of K1's CUDA kernels a call with C input and Cout output
-    channels launches: "tma_wgmma" (C == Cout in TMA_CHANNELS) or "pr1"
-    (the first, WMMA kernel: C = 512, C != Cout); convseg_forward routes
-    so."""
-    return "tma_wgmma" if C == Cout and C in TMA_CHANNELS else "pr1"
-
-
 def _check(x, a, b, w, bias, dilation):
     if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be (N, H, W, C) bf16 or f32, got "
@@ -148,9 +146,9 @@ def _check(x, a, b, w, bias, dilation):
     if w.shape[:3] != (3, 3, C):
         raise ValueError(f"w must be (3, 3, {C}, Cout), got {tuple(w.shape)}")
     Cout = w.shape[3]
-    if C % 32 or C > MAX_CHANNELS or Cout % 32:
-        raise ValueError(f"C={C} and Cout={Cout} must be multiples of 32, "
-                         f"C <= {MAX_CHANNELS}")
+    if C != Cout or C not in K1_CHANNELS:
+        raise ValueError(f"K1 takes C == Cout in {K1_CHANNELS}, got C={C}, "
+                         f"Cout={Cout}")
     if a.shape != (C,) or b.shape != (C,) or bias.shape != (Cout,):
         raise ValueError("a, b must be (C,) and bias (Cout,)")
     if int(dilation) < 1:

@@ -30,7 +30,8 @@ def _inputs(N, H, W, C, seed):
 
 
 CASES = [(2, 32, 32, C, d) for C in (32, 64, 128) for d in (1, 3, 15)] + \
-    [(1, 64, 64, 32, 31)]
+    [(1, 64, 64, 32, 31)] + \
+    [(1, 16, 16, 512, 1), (1, 8, 8, 512, 3)]   # the wide eval tier's RB(512)
 
 
 @pytest.mark.parametrize("act", [True, False])
@@ -75,10 +76,14 @@ def test_zero_padding_is_of_z_not_of_act_b():
     assert y[0, 4, 4, 0].item() == pytest.approx(9 * C * 0.5)
 
 
-@pytest.mark.parametrize("bad", ["channels", "layout", "weight", "dilation"])
+@pytest.mark.parametrize("bad", ["channels", "layout", "weight", "dilation",
+                                 "c_ne_cout", "c384"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """On every device, before any launch: K1 takes C == Cout in
+    convseg.K1_CHANNELS only (C = 16, Cout = 64 != C, C = 384 raise)."""
+    C = 384 if bad == "c384" else 32
     x, a, b, w, bias = (torch.from_numpy(t)
-                        for t in _inputs(1, 8, 8, 32, seed=3))
+                        for t in _inputs(1, 8, 8, C, seed=3))
     d = 1
     if bad == "channels":
         x, a, b = x[..., :16], a[:16], b[:16]
@@ -87,7 +92,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x = x.permute(0, 2, 1, 3)
     elif bad == "weight":
         w = w[:, :, :, :16]
-    else:
+    elif bad == "c_ne_cout":
+        w, bias = torch.cat([w, w], dim=3), torch.cat([bias, bias])
+    elif bad == "dilation":
         d = 0
     with pytest.raises(ValueError):
         convseg.bn_act_conv(x.contiguous() if bad != "layout" else x,
@@ -141,20 +148,30 @@ def test_wide_gate_runs_k9_where_the_reference_has_no_plan():
 
 def _tile_emulation(x, a, b, w, bias, d, act):
     """convseg.cu's tma_fwd_kernel decomposition in plain torch: tiles of
-    128 pixels (BW = the power of two >= W up to 128, BH = 128 / BW, as
+    PIX pixels (BW = the power of two >= W up to PIX, BH = PIX / BW, as
     sm90::make_geo); with the halo (BW >= 64, BW + 2d <= 256) one box per
     stencil row ky, BH rows x (BW + 2d) columns from (h0 + (ky-1)d, w0 - d),
     read with zero fill (TMA's: x = 0 outside), z formed once from it and
     masked to 0 on the box's image coordinates, flattened to rows of
-    pixels, and warpgroup wg's 64 pixels for tap kx read from row
-    arow + kx*d; else one box per tap, the tile shifted by it. The bias is
-    added in f32 and the overhang masked."""
+    pixels, and a warpgroup's 64 pixels for tap kx read from row
+    arow + kx*d; else one box per tap, the tile shifted by it. A work item
+    is (tile, NI output channels) (FwdShape PIX, NI, NSPLIT): up to C =
+    256 128 pixels x all C channels or (C = 256) one of two 128-channel
+    halves, warpgroup wg on pixels [64 wg, 64 wg + 64); at C = 512 64
+    pixels x one of two 256-channel halves, both warpgroups on the item's
+    z, warpgroup wg on its channels [128 wg, 128 wg + 128). Each item forms
+    its own z. The bias is added in f32 and the overhang masked."""
     N, H, W, C = x.shape
+    PIX = 64 if C == 512 else 128
+    NT = C if C < 256 else 128
+    NI = 2 * NT if C == 512 else NT
     bw_log2 = 0
-    while (1 << bw_log2) < W and (2 << bw_log2) <= 128:
+    while (1 << bw_log2) < W and (2 << bw_log2) <= PIX:
         bw_log2 += 1
-    BW, BH = 1 << bw_log2, 128 >> bw_log2
+    BW, BH = 1 << bw_log2, PIX >> bw_log2
     halo = BW >= 64 and BW + 2 * d <= 256
+    # (first pixel, first channel of the item) of each warpgroup's part
+    parts = [(0, 0), (0, NT)] if C == 512 else [(0, 0), (64, 0)]
     wb = w.to(torch.bfloat16).float()
     y = torch.zeros(N, H, W, w.shape[3])
 
@@ -171,26 +188,28 @@ def _tile_emulation(x, a, b, w, bias, d, act):
     for n in range(N):
         for h0 in range(0, H, BH):
             for w0 in range(0, W, BW):
-                acc = torch.zeros(128, w.shape[3])
-                for ky in range(3):
-                    h_org = h0 + (ky - 1) * d
-                    if halo:
-                        box_w = BW + 2 * d
-                        z = z_box(n, h_org, w0 - d, box_w)
-                        for wg in range(2):
-                            arow = ((wg * 64) >> bw_log2) * box_w + \
-                                ((wg * 64) & (BW - 1))
+                for n0 in range(0, C, NI):
+                    acc = torch.zeros(PIX, NI)
+                    for ky in range(3):
+                        h_org = h0 + (ky - 1) * d
+                        if halo:
+                            box_w = BW + 2 * d
+                            z = z_box(n, h_org, w0 - d, box_w)
+                            for px, ch in parts:
+                                arow = (px >> bw_log2) * box_w + (px & (BW - 1))
+                                wq = wb[ky, :, :, n0 + ch:n0 + ch + NT]
+                                for kx in range(3):
+                                    rows = z[arow + kx * d:arow + kx * d + 64]
+                                    acc[px:px + 64, ch:ch + NT] += rows @ wq[kx]
+                        else:
                             for kx in range(3):
-                                rows = z[arow + kx * d:arow + kx * d + 64]
-                                acc[64 * wg:64 * wg + 64] += rows @ wb[ky, kx]
-                    else:
-                        for kx in range(3):
-                            z = z_box(n, h_org, w0 + (kx - 1) * d, BW)
-                            acc += z @ wb[ky, kx]
-                r = torch.arange(128)
-                hh, ww = h0 + (r >> bw_log2), w0 + (r & (BW - 1))
-                keep = (hh < H) & (ww < W)
-                y[n, hh[keep], ww[keep]] = acc[keep] + bias.float()
+                                z = z_box(n, h_org, w0 + (kx - 1) * d, BW)
+                                acc += z @ wb[ky, kx, :, n0:n0 + NI]
+                    r = torch.arange(PIX)
+                    hh, ww = h0 + (r >> bw_log2), w0 + (r & (BW - 1))
+                    keep = (hh < H) & (ww < W)
+                    y[n, hh[keep], ww[keep], n0:n0 + NI] = \
+                        acc[keep] + bias.float()[n0:n0 + NI]
     return y.to(x.dtype)
 
 
@@ -202,6 +221,11 @@ def _tile_emulation(x, a, b, w, bias, d, act):
     (1, 3, 64, 32, 31),    # d >= H: the rows of the box outside the image
     (2, 5, 7, 32, 8),      # H*W under a tile, W <= 32: a box per tap
     (1, 2, 128, 32, 70),   # BW + 2d > 256: a box per tap
+    (1, 16, 16, 512, 1),   # RB(512) at 16^2: 4 x 16 tiles, N in halves
+    (1, 16, 16, 512, 3),
+    (1, 4, 4, 512, 1),     # a 16 x 4 tile larger than the image
+    (1, 4, 4, 512, 2),
+    (1, 2, 64, 512, 2),    # the halo at C = 512: 1 x 64 tiles
 ])
 def test_tile_algorithm_matches_reference(N, H, W, C, d, act):
     """The kernel's tiling, halo boxes, image mask and tap offsets, emulated
@@ -218,8 +242,22 @@ def test_tile_algorithm_matches_reference(N, H, W, C, d, act):
 
 
 def test_k1_design_routes_by_channels():
-    """The TMA kernel takes C == Cout in {32, 64, 128, 256}; C = 512 and
-    C != Cout stay on the WMMA kernel (convseg_forward routes the same)."""
-    assert [convseg.k1_design(C, C) for C in (32, 64, 128, 256, 512)] == \
-        ["tma_wgmma"] * 4 + ["pr1"]
-    assert convseg.k1_design(32, 64) == "pr1"
+    """One design, the TMA-fed wgmma kernel, takes C == Cout in {32, 64,
+    128, 256, 512} (convseg_forward refuses the rest); the wrapper's check
+    admits exactly those, and C != Cout is refused at every C."""
+    assert convseg.K1_DESIGN == "tma_wgmma"
+    assert convseg.K1_CHANNELS == (32, 64, 128, 256, 512)
+    # _tile_emulation's work items (FwdShape PIX x NI)
+    assert convseg.K1_ITEMS == {C: (64 if C == 512 else 128,
+                                    256 if C == 512 else min(C, 128))
+                                for C in convseg.K1_CHANNELS}
+    z = torch.zeros(1)
+    for C in (32, 64, 96, 128, 256, 384, 512, 1024):
+        for cout in (C, 2 * C):
+            args = (torch.zeros(1, 4, 4, C), z.expand(C), z.expand(C),
+                    torch.zeros(3, 3, C, cout), z.expand(cout))
+            if C in convseg.K1_CHANNELS and cout == C:
+                convseg._check(*args, 1)
+            else:
+                with pytest.raises(ValueError, match="K1 takes"):
+                    convseg._check(*args, 1)

@@ -108,7 +108,7 @@ K1_WIDE_SHAPES = [(256, 32, d) for d in (1, 3, 15)] + [(256, 64, 15),
 def test_k1_level_shapes_match_plain(cuda, C, S, d):
     """The main path's shapes and the wide tier's C = 256 take the TMA
     kernel and agree with the plain version at _k1_close's bf16 limits."""
-    assert convseg.k1_design(C, C) == "tma_wgmma"
+    assert C in convseg.K1_CHANNELS and convseg.K1_DESIGN == "tma_wgmma"
     x, a, b, w, bias = _inputs(2 if C < 256 else 1, S, S, C, C + d, cuda)
     x = x.to(torch.bfloat16)
     got = _k1_call(x, a, b, w, bias, d)
@@ -161,7 +161,7 @@ def test_k1_zero_padding_is_of_z_not_of_act_b(cuda, C):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("C", [32, 64, 128, 256])
+@pytest.mark.parametrize("C", [32, 64, 128, 256, 512])
 def test_k1_is_deterministic(cuda, C, dtype):
     """Two calls on the same inputs give bit-identical y: each output is
     summed by one warpgroup in a fixed order."""
@@ -173,22 +173,36 @@ def test_k1_is_deterministic(cuda, C, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,Cout", [(512, 512), (64, 32), (32, 128)])
-def test_k1_wmma_kernel_still_serves_the_rest(cuda, C, Cout):
-    """C = 512 (the wide eval tier's RB(512)) and C != Cout stay on the
-    first, WMMA kernel, one launch a call, against the plain version at
-    _k1_close's limits."""
-    assert convseg.k1_design(C, Cout) == "pr1"
-    x, a, b, _, _ = _inputs(2, 16, 16, C, C, cuda)
-    rng = np.random.default_rng(C + Cout)
-    w = torch.from_numpy((rng.standard_normal((3, 3, C, Cout)) /
-                          (3 * C ** 0.5)).astype(np.float32)).to(cuda)
-    bias = torch.from_numpy(rng.standard_normal(Cout).astype(np.float32)
-                            * 0.1).to(cuda)
-    x = x.to(torch.bfloat16)
-    got = _k1_call(x, a, b, w, bias, 2)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("N,S,d", [(4, 16, 1),    # RB(512) at 16^2
+                                   (2, 16, 3),
+                                   (3, 4, 1),     # a tile larger than the image
+                                   (1, 4, 2)])
+def test_k1_c512_on_the_tma_kernel_matches_plain(cuda, N, S, d, act, dtype):
+    """C = 512, the wide eval tier's RB(512), on the TMA-fed wgmma kernel
+    (N in four 128-channel quarters), one launch a call, with b > 0 so that
+    a mask from TMA's zero fill would show, at _k1_close's limits."""
+    x, a, b, w, bias = _inputs(N, S, S, 512, 512 + d, cuda)
+    x, b = x.to(dtype), b.abs() + 0.3
+    got = _k1_call(x, a, b, w, bias, d, act)
     _k1_close(got, convseg.bn_act_conv_reference(x, a, b, w, bias,
-                                                 dilation=2), torch.bfloat16)
+                                                 dilation=d, act=act), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,Cout", [(64, 32), (32, 128), (512, 256),
+                                    (384, 384)])
+def test_k1_raises_on_channels_it_does_not_take(cuda, C, Cout):
+    """C != Cout and C outside convseg.K1_CHANNELS raise ValueError before
+    any launch."""
+    x, a, b, _, _ = _inputs(1, 8, 8, C, C, cuda)
+    w = torch.zeros((3, 3, C, Cout), device=cuda)
+    launches = convseg.LAUNCHES
+    with pytest.raises(ValueError, match="K1 takes"):
+        convseg.bn_act_conv(x, a, b, w, torch.zeros(Cout, device=cuda),
+                            dilation=1)
+    assert convseg.LAUNCHES == launches
 
 
 @pytest.mark.gpu
@@ -423,8 +437,9 @@ def test_label_kernels_are_bit_identical(cuda, op, size):
     launches = mod.LAUNCHES
     got = fn(p)
     torch.cuda.synchronize()
-    # the EDT: these planes fit a cluster's shared memory, one launch
-    assert mod.LAUNCHES == launches + 1
+    # the EDT: these planes fit a cluster's shared memory, one launch;
+    # Canny: pass 1 and pass 2
+    assert mod.LAUNCHES == launches + (1 if op == "k5" else boundary.PASSES)
     assert torch.equal(got, ref(p))
     assert torch.equal(got.cpu(), ref(p.cpu()))
 
@@ -456,7 +471,7 @@ def test_tiled_label_kernels_are_bit_identical(cuda, op, case):
                           boundary.boundary_label_tiled_reference,
                           boundary.boundary_label_reference)
         used = tile or boundary.default_tile(*size)
-        n = 1
+        n = boundary.PASSES
     else:
         fn, ref, whole = (distance.distance_transform_edt,
                           distance.distance_transform_edt_tiled_reference,
@@ -487,6 +502,82 @@ def test_forced_tiled_kernels_match_the_whole_plane_kernels(cuda):
     for tile in (1, 4, 16):
         assert torch.equal(distance.distance_transform_edt(p, tile=tile),
                            distance.distance_transform_edt(p))
+
+
+def _extreme_planes(size, seed):
+    """int32 planes of values near +-2^31 (Sobel's sums wrap) and of
+    uniform ones."""
+    rng = np.random.default_rng(seed)
+    ext = np.array([-2 ** 31, -2 ** 31 + 1, -1, 0, 1, 2 ** 31 - 2,
+                    2 ** 31 - 1], np.int64)
+    return np.concatenate([
+        rng.choice(ext, (2,) + size).astype(np.int32),
+        rng.integers(-2 ** 31, 2 ** 31, (1,) + size).astype(np.int32)])
+
+
+# Canny's planes: the K6 size of the 256 px step, K8's of the 512 and
+# 1024 px steps (their default tiles), and ragged ones under a pass-1 tile
+CANNY_SIZES = [((256, 256), None), ((512, 512), None), ((1024, 1024), None),
+               ((48, 80), None), ((33, 65), 16), ((5, 7), None),
+               ((1, 50), None), ((40, 1), None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(len(CANNY_SIZES)))
+def test_canny_pass1_is_bit_identical_and_flags_nothing(cuda, case):
+    """K6 / K8 on the card (pass 1, then pass 2, which returns at once):
+    bit for bit against the plain versions on class, noise and wrapping
+    planes; pass 1 flags no plane (no int32 plane has a weak pixel)."""
+    size, tile = CANNY_SIZES[case]
+    p = torch.from_numpy(np.concatenate([
+        _label_planes(size, case), _extreme_planes(size, case)])).to(cuda)
+    got = boundary.boundary_label(p, tile=tile)
+    assert torch.equal(got, boundary.boundary_label_reference(p))
+    tiled = tile is not None or size[0] * size[1] > boundary.MAX_PLANE_ELEMS
+    used = (tile or boundary.default_tile(*size)) if tiled else None
+    if tiled:
+        assert torch.equal(got, boundary.boundary_label_tiled_reference(
+            p, used))
+    # the same launch through the C entry, its flags read back
+    P, H, W = p.shape
+    out = torch.empty_like(got)
+    flags = torch.full((P,), 7, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (p.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W)
+    rc = boundary._kernel("canny_boundary_tiled")(
+        *args, used, boundary.HALO, boundary.HYSTERESIS_ITERS, stream) \
+        if tiled else boundary._kernel("canny_boundary")(
+            *args, boundary.HYSTERESIS_ITERS, stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and not flags.any()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,tile", [((256, 256), None), ((48, 80), None),
+                                       ((512, 512), 128), ((200, 96), 40)])
+def test_canny_pass2_on_every_plane_gives_pass1s_bits(cuda, size, tile):
+    """`boundary.hysteresis` launches pass 2 alone with every plane
+    flagged: it computes each plane again (Sobel, NMS, the rounds the
+    integer planes skip, the dilation; K6's whole plane or K8's bands) and
+    writes the same bits as pass 1; with no plane flagged it writes
+    nothing."""
+    p = torch.from_numpy(np.concatenate([
+        _label_planes(size, 3), _extreme_planes(size, 3)])).to(cuda)
+    first = boundary.boundary_label(p, tile=tile)
+    P = p.shape[0]
+    out = torch.full_like(first, 5.0)
+    counter = "TILED_LAUNCHES" if tile else "LAUNCHES"
+    launches = getattr(boundary, counter)
+    boundary.hysteresis(p, out, torch.zeros(P, dtype=torch.int32,
+                                            device=cuda), tile=tile)
+    torch.cuda.synchronize()
+    assert bool((out == 5.0).all())
+    got = boundary.hysteresis(p, out, torch.ones(P, dtype=torch.int32,
+                                                 device=cuda), tile=tile)
+    torch.cuda.synchronize()
+    assert getattr(boundary, counter) == launches + 2
+    assert torch.equal(got, first)
 
 
 # the EDT's layouts on the train steps' planes: the default, every design
@@ -560,8 +651,8 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
     launches, 44 K2 calls of 4 launches, 12 K3 calls forward (one launch
     each) and 12 backward (three each), one K4 call each way (the 64 px PSP
     pools only at k = 2; one launch forward, two backward), one EDT call
-    of one launch at 64^2 (a whole plane in one cluster) and one K6 launch
-    per step; the card against the CPU plain path within
+    of one launch at 64^2 (a whole plane in one cluster) and one K6 call
+    of two launches (pass 1, pass 2) per step; the card against the CPU plain path within
     chip_smoke.STEP_TOL (the losses, all gradients, the heads, the last
     decoder ResBlock's leaves that K2 gives, the Combine_5 and PSPPooling_1
     leaves that K3 and K4 give, and every BN running buffer)."""
@@ -571,7 +662,7 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
     got = chip_smoke.step_card_vs_cpu()
     assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K3": 12,
                                "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 2,
-                               "K5/K7": 1, "K6": 1, "K9": 0, "K10": 0}
+                               "K5/K7": 1, "K6": 2, "K9": 0, "K10": 0}
     assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
 
 
@@ -582,15 +673,15 @@ def test_train_step_on_card_matches_cpu_plain_path(cuda):
 MODE_STEPS = {
     "bwd_wide": ({"bwd_wide": True},
                  {"K1": 56, "K2": 4 * 56, "K3": 12, "K3_bwd": 3 * 12,
-                  "K4": 1, "K4_bwd": 2, "K5/K7": 1, "K6": 1, "K9": 4 * 12,
+                  "K4": 1, "K4_bwd": 2, "K5/K7": 1, "K6": 2, "K9": 4 * 12,
                   "K10": 0}),
     "segment_mode_2": ({"segment_mode": "2"},
                        {"K1": 0, "K2": 4 * 44, "K3": 0, "K3_bwd": 0,
-                        "K4": 0, "K4_bwd": 0, "K5/K7": 1, "K6": 1,
+                        "K4": 0, "K4_bwd": 0, "K5/K7": 1, "K6": 2,
                         "K9": 0, "K10": 4 * 44}),
     "dense_tail_1": ({"dense_tail": "1"},
                      {"K1": 49, "K2": 4 * 49, "K3": 12, "K3_bwd": 3 * 12,
-                      "K4": 1, "K4_bwd": 2, "K5/K7": 1, "K6": 1, "K9": 0,
+                      "K4": 1, "K4_bwd": 2, "K5/K7": 1, "K6": 2, "K9": 0,
                       "K10": 0}),
 }
 
@@ -616,8 +707,8 @@ def test_train_step_512px_on_card(cuda):
     """One 512 px dense-trunk step at full width (bf16, batch 2, through
     chip_smoke.train_steps): 44 K1 launches, 44 K2 calls of 4, 12 K3 and 3
     K4 calls each way, and on the label side one EDT call of 8 launches
-    (design "tail": 7 banded passes, one fused tail) and one K8 launch, no
-    K6; finite metric rows."""
+    (design "tail": 7 banded passes, one fused tail) and one K8 call (pass
+    1 and pass 2), no K6; finite metric rows."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     from resuneta_torch import models
@@ -626,7 +717,7 @@ def test_train_step_512px_on_card(cuda):
         models, 1, None, (convseg, densemm, poolconv, distance, boundary),
         patch=512, batch=2)
     assert counts == chip_smoke.expected_counts(1, True, 512)
-    assert counts["K5/K7"] == 8 and counts["K8"] == 1
+    assert counts["K5/K7"] == 8 and counts["K8"] == boundary.PASSES
     assert counts["K6"] == 0
     assert np.isfinite(rows).all() and params == 42708930
 

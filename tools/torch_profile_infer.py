@@ -14,7 +14,7 @@ K1 too; the other mode arguments route train mode only.
 Prints one JSON line: the card (nvidia-smi name and power limit), the host
 wall time per forward, the device busy time per forward (sum of kernel
 times), the busy share, and the kernels by total device time with the share
-that K1 (tma_fwd_kernel and the WMMA convseg_kernel) and cuDNN's
+that K1 (tma_fwd_kernel) and cuDNN's
 convolutions take.
 """
 
@@ -77,8 +77,8 @@ def main(argv=None):
     def share(pred):
         return sum(v for k, v in kernels.items() if pred(k)) / args.iters
 
-    def is_k1(k):   # K1's two designs
-        return "tma_fwd_kernel" in k or "convseg_kernel" in k
+    def is_k1(k):   # K1's kernel
+        return "tma_fwd_kernel" in k
 
     k1 = share(is_k1)
     conv = share(lambda k: any(s in k.lower() for s in (

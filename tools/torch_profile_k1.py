@@ -11,8 +11,10 @@ precomputed z and the bound) and its sums per unit.
 one card. Prints the card (nvidia-smi name and power limit), each row as
 chip_smoke prints it, then one JSON line of sums: K1 over the 44 launches
 of a 32-patch 256 px forward at their shapes, beside cuDNN's and the
-bound, and the same for each level (C) and for the wide tier's shapes;
---out also writes that line to FILE.
+bound, and the same for each level (C) and for the wide tier's shapes,
+and the wide eval tier's C = 512 launch (RB(512) at 16^2, batch 32) with
+its design; --out also writes that line to FILE. For two trees in turns,
+run it as parent, this, this, parent (one process each).
 """
 
 import argparse
@@ -57,6 +59,9 @@ def main(argv=None):
                                      "launches_per_unit")
                             for p in sorted({r["path"] for r in rows
                                              if not r["on_path"]})},
+           "c512_launch": [{k: r.get(k) for k in (
+               "N", "H", "d", "design", "ms", "plain_ms", "library_ms",
+               "bound_ms", "max_abs_err")} for r in rows if r["C"] == 512],
            "designs": sorted({r.get("design", "pr1") for r in rows})}
     print(json.dumps(out), flush=True)
     if out_path:

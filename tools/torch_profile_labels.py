@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The EDT kernel (K5/K7) and K4 (max pool -> 1x1 conv) alone on the card,
-for one tree or two in turns on one card.
+"""The EDT kernel (K5/K7), the Canny boundary kernel (K6/K8) and K4 (max
+pool -> 1x1 conv) alone on the card, for one tree or two in turns on one
+card.
 
     python3 tools/torch_profile_labels.py [--root PARENT] [--out FILE]
 
@@ -8,7 +9,11 @@ The EDT: one call over a train step's class planes at each patch size
 (`chip_smoke.label_planes`: 80 planes of 256^2, 40 of 512^2, 10 of
 1024^2), first held bit for bit against the whole-plane plain version;
 on a tree whose wrapper has `plan`, also the designs and tiles of
-`chip_smoke.EDT_LAYOUTS` it can be forced to (`ms_by_design`). K4:
+`chip_smoke.EDT_LAYOUTS` it can be forced to (`ms_by_design`). Canny: one `boundary_label` call
+over the same planes (K6 at 256^2, K8 at its default tile at 512^2 and
+1024^2), first held bit for bit against the whole-plane plain version,
+with its launches, by CUDA events and by device time, beside the bound:
+8 bytes a pixel against ~50 integer operations a pixel. K4:
 `chip_smoke.K4_CALLS`, the PSP's three calls of a
 dense-trunk step, at each patch size (256 px x 16, 512 px x 8, 1024 px x
 2), forward and backward apart, first held against the plain versions
@@ -62,9 +67,9 @@ def run_one(root):
 
     import chip_smoke
     from resuneta_torch.kernels import build
-    from resuneta_torch.ops import distance, poolconv
+    from resuneta_torch.ops import boundary, distance, poolconv
 
-    build.build_all(["jfa", "poolconv"])
+    build.build_all(["jfa", "poolconv", "canny"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -101,6 +106,29 @@ def run_one(root):
                 by[json.dumps(kw, sort_keys=True)] = ms(fn, reps=10)
             row["ms_by_design"] = by
         edt[str(size)] = row
+        del planes, want, got
+
+    canny = {}
+    for size, _ in SIZES:
+        planes = chip_smoke.label_planes(size)
+        P, H, W = planes.shape
+        want = boundary.boundary_label_reference(planes)
+        n0 = boundary.LAUNCHES + boundary.TILED_LAUNCHES
+        got = boundary.boundary_label(planes)
+        torch.cuda.synchronize()
+        launches = boundary.LAUNCHES + boundary.TILED_LAUNCHES - n0
+        chip_smoke.same(f"Canny at {size}^2", got, want)
+        t_ops = 50 * planes.numel() / chip_smoke.PEAK_SCALAR_OPS
+        t_bytes = P * H * W * 8 / chip_smoke.PEAK_BYTES
+
+        def fn(planes=planes):
+            return boundary.boundary_label(planes)
+
+        row = {"planes": P, "H": H, "W": W, "launches": launches,
+               "ms": ms(fn, reps=20, warmup=3), "device_ms": device_ms(fn),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        canny[str(size)] = row
         del planes, want, got
 
     g = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 9)
@@ -170,7 +198,7 @@ def run_one(root):
         k4[str(patch)] = rows
     k4_sums = {p: {key: sum(r[key] for r in rows) for key in K4_KEYS}
                for p, rows in k4.items()}
-    return {"root": root, "card": smi, "edt": edt, "k4": k4,
+    return {"root": root, "card": smi, "edt": edt, "canny": canny, "k4": k4,
             "k4_sums": k4_sums}
 
 
@@ -181,21 +209,26 @@ EDT_KEYS = ("ms", "device_ms", "bound_ms")
 
 
 def mean_runs(runs):
-    """The runs of one tree: the EDT's and K4's sums averaged, with their
-    spread (min and max)."""
+    """The runs of one tree: the EDT's, Canny's and K4's sums averaged, with
+    their spread (min and max), and each label kernel's share of its
+    bound (of the mean time by events)."""
     out = {"root": runs[0]["root"], "card": runs[0]["card"], "edt": {},
-           "k4_sums": {}}
-    for p, row in runs[0]["edt"].items():
-        vals = {k: [run["edt"][p][k] for run in runs] for k in EDT_KEYS}
-        out["edt"][p] = {**{k: v for k, v in row.items()
-                            if k not in EDT_KEYS + ("ms_by_design",)},
-                         **{k: sum(v) / len(v) for k, v in vals.items()},
-                         "spread": {k: [min(v), max(v)]
-                                    for k, v in vals.items()}}
-        if "ms_by_design" in row:
-            out["edt"][p]["ms_by_design"] = {
-                d: sum(run["edt"][p]["ms_by_design"][d] for run in runs) /
-                len(runs) for d in row["ms_by_design"]}
+           "canny": {}, "k4_sums": {}}
+    for kernel in ("edt", "canny"):
+        for p, row in runs[0][kernel].items():
+            vals = {k: [run[kernel][p][k] for run in runs] for k in EDT_KEYS}
+            mean = {k: sum(v) / len(v) for k, v in vals.items()}
+            out[kernel][p] = {**{k: v for k, v in row.items()
+                                 if k not in EDT_KEYS + ("ms_by_design",)},
+                              **mean,
+                              "share_of_bound": mean["bound_ms"] / mean["ms"],
+                              "spread": {k: [min(v), max(v)]
+                                         for k, v in vals.items()}}
+            if "ms_by_design" in row:
+                out[kernel][p]["ms_by_design"] = {
+                    d: sum(run[kernel][p]["ms_by_design"][d]
+                           for run in runs) / len(runs)
+                    for d in row["ms_by_design"]}
     for p in runs[0]["k4_sums"]:
         vals = {k: [run["k4_sums"][p][k] for run in runs] for k in K4_KEYS}
         out["k4_sums"][p] = {**{k: sum(v) / len(v) for k, v in vals.items()},

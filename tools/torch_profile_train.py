@@ -27,13 +27,13 @@ routing and modes, the host wall time per step (without the profiler,
 and under it), the peak device memory (allocated blocks, and the bytes
 the tensors requested), the device busy time per step (sum
 of kernel times, under the profiler), the busy share, the time of each of
-the port's kernels (K1 tma_fwd_kernel, and the WMMA convseg_kernel where
-C = 512 or C != Cout, K2 dgrad/wgrad at C <= 128, K9 dgrad/wgrad at C =
+the port's kernels (K1 tma_fwd_kernel, K2 dgrad/wgrad at C <= 128, K9 dgrad/wgrad at C =
 256, their reduce_rows and reduce_cols, K3 k3_* (bf16) and densemm_*
 (f32, and the fixed-order sum of the bf16 wgrad), K4 poolconv_*, the
 EDT's banded jfa_pass and its cluster kernel jfa_cluster (K5 and K7
 alike), and
-canny_kernel: K6 up to 384 px, K8 above), cuDNN/CUTLASS convolutions and
+Canny's canny_tile_kernel (pass 1) and canny_kernel (pass 2): K6 up to
+384 px, K8 above), cuDNN/CUTLASS convolutions and
 GEMMs, the top kernels by total device time, the operators by device
 time with their input shapes, and the host operators by self CPU time
 (calls and ms per step).
@@ -65,7 +65,6 @@ def _k2(name, wide):
 
 GROUPS = {
     "K1 tma_fwd_kernel": lambda k: "tma_fwd_kernel" in k,
-    "K1 convseg_kernel": lambda k: "convseg_kernel" in k,
     "K2 dgrad_kernel": _k2("dgrad_kernel", False),
     "K2 wgrad_kernel": _k2("wgrad_kernel", False),
     "K9 dgrad_kernel": _k2("dgrad_kernel", True),
@@ -85,6 +84,7 @@ GROUPS = {
     "K4 poolconv_reduce": lambda k: "poolconv_reduce" in k,
     "K5/K7 jfa_pass": lambda k: "jfa_pass" in k,
     "K5/K7 jfa_cluster": lambda k: "jfa_cluster" in k,
+    "K6/K8 canny_tile_kernel": lambda k: "canny_tile_kernel" in k,
     "K6/K8 canny_kernel": lambda k: "canny_kernel" in k,
 }
 
