@@ -103,8 +103,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             K4), dense_tail="1" at 256 px (49 and 49); the other counts as
             the default step's; then each mode's 64 px f32 step, card
             against the CPU plain path.
-11. kernels line (K1-K10), then the last line
-            {"ok": true, "device": {...}}.
+11. train_cli - the training runtime through its entry point: a packed
+            dataset of 10 seeded 256 x 256 x 3 patches with the 5
+            augmentation variants (write_packed_dataset under
+            build/train_cli/) trained by resuneta_torch.cli.train_isprs.main
+            in this process (multitask ResUnet-a d6 at full width, Tanimoto,
+            bf16, batch 8, 2 epochs of 5 train steps and 1 eval step), then
+            resumed from its best checkpoint for 1 epoch at lr 5e-4. Fails
+            unless the history is finite, the checkpoint and its meta JSON
+            exist, the checkpoint restored into a fresh state equals the
+            saved tensors bit for bit, the resumed state has lr 5e-4 and the
+            saved step plus 5, the loader ran its native row gather, and
+            each run's launches equal expected_counts for its train steps
+            plus expected_eval_counts for its eval steps (44 K1 and the
+            labels' EDT and Canny launches each). Its row: patches/s and
+            seconds of each epoch, the phase's wall time, the launches.
+12. kernels line (K1-K10; the launches count the train_cli runs too),
+            then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is false
 or the package is not beside this file.
@@ -112,9 +127,11 @@ or the package is not beside this file.
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1059,6 +1076,26 @@ def step_card_vs_cpu(threads=True, **modes):
             "failed": [k for k, v in errs.items() if not v < STEP_TOL[k]]}
 
 
+def kernel_counters(mods):
+    """{name: (module, attribute)} of every kernel's launch and call count
+    on the train paths; mods = (convseg, densemm, poolconv, distance,
+    boundary)."""
+    convseg, densemm, poolconv, distance, boundary = mods
+    return {"K1": (convseg, "LAUNCHES"), "K2": (convseg, "BWD_LAUNCHES"),
+            "K2 calls": (convseg, "BWD_CALLS"),
+            "K3": (densemm, "LAUNCHES"), "K3 calls": (densemm, "CALLS"),
+            "K3 bwd": (densemm, "BWD_LAUNCHES"),
+            "K3 bwd calls": (densemm, "BWD_CALLS"),
+            "K4": (poolconv, "LAUNCHES"), "K4 calls": (poolconv, "CALLS"),
+            "K4 bwd": (poolconv, "BWD_LAUNCHES"),
+            "K4 bwd calls": (poolconv, "BWD_CALLS"),
+            "K5/K7": (distance, "LAUNCHES"),
+            "K6": (boundary, "LAUNCHES"),
+            "K8": (boundary, "TILED_LAUNCHES"),
+            "K9": (convseg, "WIDE_BWD_LAUNCHES"),
+            "K10": (convseg, "BWDONLY_LAUNCHES")}
+
+
 def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
                 batch=TRAIN_BATCH, **modes):
     """`steps` ISPRS train steps at full width from seeded weights, in the
@@ -1082,20 +1119,7 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
     step = make_train_step(losses.make_losses("tanimoto"),
                            {h: 1.0 for h in HEADS}, True,
                            preprocess=make_device_pipeline(NUM_CLASSES, 1))
-    convseg, densemm, poolconv, distance, boundary = mods
-    counters = {"K1": (convseg, "LAUNCHES"), "K2": (convseg, "BWD_LAUNCHES"),
-                "K2 calls": (convseg, "BWD_CALLS"),
-                "K3": (densemm, "LAUNCHES"), "K3 calls": (densemm, "CALLS"),
-                "K3 bwd": (densemm, "BWD_LAUNCHES"),
-                "K3 bwd calls": (densemm, "BWD_CALLS"),
-                "K4": (poolconv, "LAUNCHES"), "K4 calls": (poolconv, "CALLS"),
-                "K4 bwd": (poolconv, "BWD_LAUNCHES"),
-                "K4 bwd calls": (poolconv, "BWD_CALLS"),
-                "K5/K7": (distance, "LAUNCHES"),
-                "K6": (boundary, "LAUNCHES"),
-                "K8": (boundary, "TILED_LAUNCHES"),
-                "K9": (convseg, "WIDE_BWD_LAUNCHES"),
-                "K10": (convseg, "BWDONLY_LAUNCHES")}
+    counters = kernel_counters(mods)
     for m, k in counters.values():
         setattr(m, k, 0)
     rows, times = [], []
@@ -1297,6 +1321,178 @@ def phase_train_modes(models, mods, smi):
     return out
 
 
+# the train_cli phase: a packed set of CLI_PATCHES seeded 256 x 256 x 3
+# patches with the 5 augmentation variants (50 samples, split by the CLI
+# into 40 train and 10 validation) trained through the CLI's main in this
+# process: CLI_EPOCHS epochs of 5 train steps and 1 eval step at batch
+# CLI_BATCH, bf16, then a resume from the best checkpoint for one epoch at
+# learning rate CLI_LR. Per eval step (eval mode, the NHWC routing): the
+# 44 segments through K1 and the validation batch's labels
+# (LABEL_LAUNCHES); no K2, K3 or K4.
+CLI_PATCHES, CLI_BATCH, CLI_EPOCHS, CLI_LR = 10, 8, 2, 5e-4
+EVAL_SEGMENTS = 44
+WORK_DIR = Path(__file__).resolve().parent / "build"
+
+
+def expected_eval_counts(steps, patch=PATCH):
+    per = dict.fromkeys(expected_counts(1, True, patch), 0)
+    per.update({"K1": EVAL_SEGMENTS, **LABEL_LAUNCHES[patch]})
+    return {k: v * steps for k, v in per.items()}
+
+
+def train_cli(work, mods, patch=PATCH, batch=CLI_BATCH, patches=CLI_PATCHES,
+              epochs=CLI_EPOCHS, dtype="bfloat16"):
+    """Write a seeded packed dataset under `work` with the port's
+    write_packed_dataset, train the full-width multitask ResUnet-a d6 on it
+    through resuneta_torch.cli.train_isprs.main (Tanimoto, Adam, `dtype`,
+    the card's default routing), then resume from its best checkpoint for
+    one epoch at CLI_LR. Every kernel count is set to 0 just before each
+    run and read just after. Fails unless every history value is finite,
+    the checkpoint and its meta JSON exist, the checkpoint restored into a
+    fresh state equals the saved tensors bit for bit (and the run's final
+    state where the last epoch saved it), and the resumed state has
+    learning rate CLI_LR and the saved step plus one epoch's steps.
+    Returns the runs' histories, times, counts and step counts."""
+    from resuneta_torch.cli import train_isprs
+    from resuneta_torch.data import (PackedDataset, native_loader,
+                                     write_packed_dataset)
+    from resuneta_torch.data.split import train_test_split
+    from resuneta_torch.models import ResUnetA
+    from resuneta_torch.train import checkpoint, create_train_state
+    from resuneta_torch.train.loop import epoch_batches
+
+    work = Path(work)
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 7)
+    data = work / "data"
+    write_packed_dataset(
+        str(data), rng.integers(0, 256, (patches, patch, patch, 3),
+                                dtype=np.uint8),
+        voronoi_ids(patches, patch, NUM_CLASSES, rng), NUM_CLASSES)
+    n = len(PackedDataset(str(data)))
+    n_val = len(train_test_split(np.arange(n))[1])
+    per_epoch = (epoch_batches(n - n_val, batch)[0],
+                 epoch_batches(n_val, batch)[0])
+    ckpt = work / "run" / "best_model.ckpt"
+    common = ["--resunet_a", "True", "--multitasking", "True", "--loss",
+              "tanimoto", "--dtype", dtype, "-bs", str(batch), "-ps",
+              str(patch), "-dp", str(data), "--seed", str(SEED)]
+    counters = kernel_counters(mods)
+    out = {}
+    for name, extra, ep in (
+            ("run", ["-rp", str(work / "run"), "--epochs", str(epochs)],
+             epochs),
+            ("resume", ["-rp", str(work / "resume"), "-cp", str(ckpt),
+                        "-lr", str(CLI_LR), "--epochs", "1"], 1)):
+        first = out.get("saved_step", 0)     # the step the run starts from
+        for m, k in counters.values():
+            setattr(m, k, 0)
+        t0 = time.time()
+        state, history = train_isprs.main(common + extra)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = {key: getattr(m, k) for key, (m, k) in counters.items()}
+        vals = [v for h in history for split in ("train", "val")
+                for v in h[split].values()]
+        if len(history) != ep or not np.isfinite(vals).all():
+            fail(f"train_cli {name}: {len(history)} epochs of {ep}, or "
+                 f"non-finite history: {history}")
+        if state.step - first != per_epoch[0] * ep:
+            fail(f"train_cli {name}: {state.step - first} train steps, "
+                 f"expected {per_epoch[0]} x {ep} epochs")
+        out[name] = {"state": state, "history": history, "seconds": secs,
+                     "counts": counts, "train_steps": state.step - first,
+                     "eval_steps": per_epoch[1] * ep}
+        if name == "run":
+            meta_path = Path(str(ckpt) + ".meta.json")
+            if not (ckpt / checkpoint.CKPT_FILE).exists() or \
+                    not meta_path.exists():
+                fail(f"train_cli: no {ckpt} or no {meta_path}")
+            saved = torch.load(ckpt / checkpoint.CKPT_FILE,
+                               map_location="cpu", weights_only=True)
+            fresh = create_train_state(
+                ResUnetA(NUM_CLASSES, img_size=patch, multitasking=True,
+                         generator=torch.Generator().manual_seed(SEED + 1)),
+                "adam", 1e-3)
+            fresh, meta = checkpoint.restore(str(ckpt), fresh)
+            states = [fresh]
+            if meta["epoch"] == epochs - 1:     # the final state was saved
+                states.append(state)
+            for st in states:
+                bad = _state_differs(st, saved)
+                if bad:
+                    fail(f"train_cli: restored checkpoint differs at {bad}")
+            out["meta"] = meta
+            out["saved_step"] = saved["step"]
+            out["compared_final_state"] = len(states) == 2
+            del fresh
+    # the resume's step was checked above: the saved step plus one epoch's
+    if out["resume"]["state"].learning_rate != CLI_LR:
+        fail(f"train_cli resume: lr {out['resume']['state'].learning_rate}, "
+             f"expected {CLI_LR}")
+    out["loader"] = native_loader.backend()
+    for name in ("run", "resume"):
+        del out[name]["state"]
+    return out
+
+
+def _state_differs(state, saved):
+    """Names where a TrainState differs from a checkpoint's payload, bit
+    for bit."""
+    opt = state.optimizer.state_dict()
+    bad = [k for k, v in state.model.state_dict().items()
+           if not torch.equal(v.cpu(), saved["model"][k])]
+    for i, st in saved["optimizer"]["state"].items():
+        for k, v in st.items():
+            if not torch.equal(torch.as_tensor(opt["state"][i][k]).cpu(), v):
+                bad.append(f"optimizer {i} {k}")
+    if opt["param_groups"] != saved["optimizer"]["param_groups"]:
+        bad.append("optimizer param_groups")
+    if state.step != saved["step"]:
+        bad.append("step")
+    return bad
+
+
+def phase_train_cli(mods, smi):
+    """train_cli at full width, 256 px, bf16 (CLI_*), the native row
+    gather on: the launches of each run equal expected_counts for its
+    train steps plus expected_eval_counts for its eval steps."""
+    t0 = time.time()
+    out = train_cli(WORK_DIR / "train_cli", mods)
+    if out["loader"] != "native":
+        fail(f"train_cli: the loader ran {out['loader']!r}, not 'native'")
+    for name in ("run", "resume"):
+        r = out[name]
+        want = expected_counts(r["train_steps"], True)
+        for k, v in expected_eval_counts(r["eval_steps"]).items():
+            want[k] += v
+        if r["counts"] != want:
+            fail(f"train_cli {name} counts {r['counts']}, expected {want}")
+    row = {"phase": "train_cli",
+           "command": "python -m resuneta_torch.cli.train_isprs "
+                      "--resunet_a True --multitasking True --loss tanimoto "
+                      f"--dtype bfloat16 -bs {CLI_BATCH} -ps {PATCH} --epochs "
+                      f"{CLI_EPOCHS}, then -cp <best> -lr {CLI_LR} --epochs 1",
+           "patches": CLI_PATCHES, "samples": CLI_PATCHES * 5,
+           "loader": out["loader"], "best_epoch": out["meta"]["epoch"],
+           "saved_step": out["saved_step"],
+           "restore_checked_against_final_state":
+               out["compared_final_state"],
+           "seconds": time.time() - t0, "card": smi}
+    for name in ("run", "resume"):
+        r = out[name]
+        row[name] = {
+            "seconds": r["seconds"], "train_steps": r["train_steps"],
+            "eval_steps": r["eval_steps"],
+            "patches_per_s": [h["patches_per_sec"] for h in r["history"]],
+            "epoch_s": [h["time"] for h in r["history"]],
+            "val_loss": [h["val"]["loss"] for h in r["history"]],
+            "launches": r["counts"]}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1329,6 +1525,10 @@ def main():
             models, mods, smi, patch, batch, steps)["launches"]
     for name, row in phase_train_modes(models, mods, smi).items():
         paths[name] = row["launches"]
+    cli = phase_train_cli(mods, smi)
+    paths["train_cli"] = {k: cli["run"]["launches"][k] +
+                          cli["resume"]["launches"][k]
+                          for k in cli["run"]["launches"]}
 
     def launched(key):
         """Launches of a kernel on each train path that ran it, and in

@@ -18,7 +18,11 @@ Ported so far:
   K5) and the Canny boundary labels (`ops.boundary`, K6) as CUDA kernels,
   in both of the reference's routings: NHWC, and the dense trunk (the
   default on the card), whose 1x1 convs over concat parts (`ops.densemm`,
-  K3) and PSP max pool -> 1x1 conv (`ops.poolconv`, K4) are CUDA kernels.
+  K3) and PSP max pool -> 1x1 conv (`ops.poolconv`, K4) are CUDA kernels;
+- the training runtime above the step: packed datasets with a native row
+  gather (`data.dataset`, `data.native_loader`), the epoch loop and
+  checkpoints (`train.loop`, `train.checkpoint`), the UNet baseline
+  (`models.unet`) and the train CLI (`cli.train_isprs`).
 """
 
 __version__ = "0.1.0"

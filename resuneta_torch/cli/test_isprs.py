@@ -10,7 +10,9 @@ normalize (norm_type 3 fits the scaler on the image itself), chop into
 non-overlapping patches, predict in batches, print the confusion matrix,
 accuracy, F1, recall, precision, per-class IoU and mIoU, and save the
 reconstructed class map as pred_seg_reconstructed.jpeg. --model_path is a
-.pt state_dict or an .npz of flattened Flax variables.
+.pt state_dict, an .npz of flattened Flax variables, or a training
+checkpoint directory of the port's train CLI (best_model.ckpt).
+--resunet_a False evaluates the UNet baseline.
 """
 
 import argparse
@@ -18,28 +20,20 @@ import os
 
 import numpy as np
 
+from ..utils.cli import str2bool
+
 MULTITASK_VIZ_NOTE = (
     "per-class/per-task prediction grids and the HSV render are not written: "
     "they need the boundary (Canny) and distance (JFA) label kernels, which "
     "arrive with the training slice")
 
 
-def str2bool(v):
-    """train_ISPRS.py:19-27."""
-    if isinstance(v, bool):
-        return v
-    if v.lower() in ("yes", "true", "t", "y", "1"):
-        return True
-    if v.lower() in ("no", "false", "f", "n", "0"):
-        return False
-    raise argparse.ArgumentTypeError("Boolean value expected.")
-
-
 def build_parser():
     parser = argparse.ArgumentParser()
     parser.add_argument("--use_multitasking", help="Choose resunet-a model or not",
                         action="store_true")
-    parser.add_argument("--model_path", help="Model weights (.pt or Flax .npz)",
+    parser.add_argument("--model_path", help="Model weights (.pt, Flax .npz "
+                        "or a training checkpoint directory)",
                         type=str, required=True)
     parser.add_argument("--dataset_path", help="Dataset directory path",
                         type=str, required=True)
@@ -82,9 +76,6 @@ def _save_image(path, rgb):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.resunet_a:
-        raise NotImplementedError("only the ResUnet-a family is ported; the "
-                                  "U-Net variants are still to port")
 
     import torch
 
@@ -94,10 +85,10 @@ def main(argv=None):
     from ..infer.sliding import (make_apply_fn, predict_patches,
                                  predict_scene_overlap)
     from ..metrics import compute_metrics, confusion_matrix, iou_per_class
-    from ..models import ResUnetA
+    from ..models import ResUnetA, UNet
     from ..ops.normalize import normalization, normalize_rgb
     from ..ops.patches import extract_patches_nonoverlap, reconstruct_from_patches
-    from ..train.checkpoint import restore_variables
+    from ..train.checkpoint import restore_model, restore_variables
 
     device = resolve_device(args.device)
     root_path = args.dataset_path
@@ -122,10 +113,18 @@ def main(argv=None):
     patches_test_ref = extract_patches_nonoverlap(binary_ref, args.patch_size)
     print(patches_test.shape)
 
-    model = ResUnetA(num_classes=args.num_classes, img_size=args.patch_size,
-                     multitasking=args.use_multitasking,
+    if args.resunet_a:
+        model = ResUnetA(num_classes=args.num_classes,
+                         img_size=args.patch_size,
+                         multitasking=args.use_multitasking,
+                         in_channels=patches_test.shape[-1], device="cpu")
+    else:
+        model = UNet(num_classes=args.num_classes,
                      in_channels=patches_test.shape[-1], device="cpu")
-    restore_variables(args.model_path, model)
+    if os.path.isdir(args.model_path):
+        restore_model(args.model_path, model)
+    else:
+        restore_variables(args.model_path, model)
     apply_fn = make_apply_fn(model, device)
 
     preds = predict_patches(apply_fn, patches_test, batch_size=args.batch_size)

@@ -31,11 +31,17 @@ def binary_counts(y_true, y_pred, threshold=0.5):
 
 def compute_mcc(tp, tn, fp, fn):
     """Matthews correlation coefficient from the counts; 0 where a marginal
-    count is 0 (sklearn's semantics, not the reference's NaN)."""
-    tp, tn, fp, fn = (torch.as_tensor(v, dtype=torch.float32)
-                      for v in (tp, tn, fp, fn))
-    denom = torch.sqrt((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn))
-    return torch.where(denom > 0, (tp * tn - fp * fn) / denom.clamp_min(1e-38),
+    count is 0 (sklearn's semantics, not the reference's NaN). The counts
+    (the epoch loop's means, or scalar tensors) become Python numbers,
+    combine in double precision and round to f32 before the square root
+    and the division, as jnp does with Python scalars; the f32 root is
+    taken in f64, so it is correctly rounded (the CPU's f32 sqrt is not
+    always)."""
+    tp, tn, fp, fn = (float(v) for v in (tp, tn, fp, fn))
+    num = torch.tensor(tp * tn - fp * fn, dtype=torch.float32)
+    denom = torch.tensor((tp + fp) * (tp + fn) * (tn + fp) * (tn + fn),
+                         dtype=torch.float32).double().sqrt().float()
+    return torch.where(denom > 0, num / denom.clamp_min(1e-38),
                        torch.zeros_like(denom))
 
 

@@ -32,6 +32,7 @@ from resuneta_tpu.ops import dense as jdops
 from resuneta_tpu.ops.pallas import densemm as jdensemm
 from resuneta_tpu.ops.pallas import poolconv as jpoolconv
 from test_torch_model import flax_variables
+from util_torch import one_thread  # noqa: F401  (a fixture)
 
 
 def _close(got, want, bf16, small_rtol=1e-5):
@@ -599,6 +600,7 @@ def _emu_inputs(parts, cout, N, H, W, seed):
 
 @pytest.mark.parametrize("case", range(len(EMU_CASES)),
                          ids=[c[0].replace(" ", "_") for c in EMU_CASES])
+@pytest.mark.usefixtures("one_thread")
 def test_k3_tiling_emulation_matches_plain(case):
     name, parts, cout, N, H, W = EMU_CASES[case]
     xs, w, b, g, spec = _emu_inputs(parts, cout, N, H, W, case)

@@ -985,3 +985,73 @@ def test_k3_f32_stays_on_pr3_kernels_and_bf16_limits_raise(cuda):
     with pytest.raises(ValueError, match="refuse"):
         densemm.dense_mm_bwd(xs, torch.zeros((1, 8, 8, 32), device=cuda,
                                              dtype=torch.bfloat16), w, **spec)
+
+
+# ----------------------------------------------------------- train runtime
+
+@pytest.mark.gpu
+def test_train_cli_packed_then_resume_on_card(cuda, tmp_path):
+    """The packed dataset -> train CLI -> resume path at 64 px, f32, full
+    width (chip_smoke.train_cli: 2 patches with the 5 variants, 8 train
+    and 2 validation samples, batch 4, 2 epochs, then 1 epoch from the
+    best checkpoint at lr 5e-4; the restored state bit for bit, the
+    resumed lr and step). The native row gather serves the batches, and
+    the kernels launch per train step as the 64 px step does (44 K1, 44
+    K2 calls of 4, 12 K3 calls (1 launch forward, 3 backward), 1 K4 call
+    (1, 2), 1 EDT launch, 2 Canny launches) and per eval step 44 K1 and the
+    labels' 1 + 2."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    out = chip_smoke.train_cli(
+        tmp_path, (convseg, densemm, poolconv, distance, boundary),
+        patch=64, batch=4, patches=2, dtype="float32")
+    assert out["loader"] == "native"
+    for name, epochs in (("run", 2), ("resume", 1)):
+        r = out[name]
+        t, e = r["train_steps"], r["eval_steps"]
+        assert (t, e) == (2 * epochs, epochs)
+        want = dict.fromkeys(r["counts"], 0)
+        want.update({"K1": 44 * (t + e), "K2": 4 * 44 * t, "K2 calls": 44 * t,
+                     "K3": 12 * t, "K3 calls": 12 * t, "K3 bwd": 36 * t,
+                     "K3 bwd calls": 12 * t, "K4": t, "K4 calls": t,
+                     "K4 bwd": 2 * t, "K4 bwd calls": t, "K5/K7": t + e,
+                     "K6": 2 * (t + e)})
+        assert r["counts"] == want, name
+
+
+@pytest.mark.gpu
+def test_dataset_batches_reach_the_card_as_the_cpu_bytes(cuda, tmp_path):
+    """A packed batch (native row gather) through the step's moves and the
+    device pipeline: the uint8 pixels, ids and variants on the card are
+    the host's bytes; the one-hot and boundary labels equal the CPU
+    pipeline's bit for bit; the normalised image within one f32 ulp
+    (2^-23 relative: PyTorch's CUDA division by a scalar multiplies by the
+    reciprocal, the CPU divides); distance and HSV colour within 1e-6
+    absolute (values in [0, 1]; the distance's min-max division as the
+    image's)."""
+    from resuneta_torch.data import (PackedDataset, make_device_pipeline,
+                                     native_loader, write_packed_dataset)
+    from resuneta_torch.train.steps import _on
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    rng = np.random.default_rng(3)
+    write_packed_dataset(
+        str(tmp_path), rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8),
+        chip_smoke.voronoi_ids(3, 64, 5, rng), 5)
+    raw = PackedDataset(str(tmp_path)).get_batch([14, 0, 7, 3])
+    assert native_loader.backend() == "native"
+    moved = _on(raw, cuda)
+    for k, v in raw.items():
+        assert moved[k].is_cuda and torch.equal(moved[k].cpu(),
+                                                torch.as_tensor(v)), k
+    card = make_device_pipeline(5, 1, True, device=cuda)(raw)
+    cpu = make_device_pipeline(5, 1, True, device="cpu")(raw)
+    for k in ("seg", "bound"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    torch.testing.assert_close(card["image"].cpu(), cpu["image"],
+                               rtol=2 ** -23, atol=0)
+    for k in ("dist", "color"):
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=0, atol=1e-6)

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing it loads no JAX, Flax or
-resuneta_tpu, and no file of it (or chip_smoke.py) imports them."""
+"""The PyTorch port stands alone: importing it loads no JAX, Flax, orbax,
+scikit-learn or resuneta_tpu, and no file of it (or chip_smoke.py) imports
+them."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import pytest
 import torch  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "resuneta_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "resuneta_tpu",
+             "sklearn")
 PORT_FILES = sorted((ROOT / "resuneta_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 

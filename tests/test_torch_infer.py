@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from util_synth import synth_scene
+from util_torch import one_thread  # noqa: F401  (a fixture)
 from resuneta_torch import metrics as tmetrics
 from resuneta_torch.data import isprs as tisprs
 from resuneta_torch.infer import sliding as tsliding
@@ -192,6 +193,7 @@ def _write_scene(root, h=128, w=192):
 
 
 @pytest.mark.parametrize("fmt", ["pt", "npz"])
+@pytest.mark.usefixtures("one_thread")
 def test_cli_on_a_synthetic_scene(tmp_path, capsys, model64, fmt):
     from resuneta_torch.cli.test_isprs import main
     from resuneta_torch.convert import flatten
@@ -227,6 +229,27 @@ def test_cli_on_a_synthetic_scene(tmp_path, capsys, model64, fmt):
     assert (out / "pred_seg_reconstructed.jpeg").exists()
     assert cm.sum() == 128 * 192
     assert 0.0 <= metrics[0] <= 100.0
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_cli_evaluates_a_unet_checkpoint(tmp_path, capsys):
+    """--resunet_a False: the UNet baseline, single-task, from a training
+    checkpoint directory as the train CLI writes it (best_model.ckpt)."""
+    from resuneta_torch.cli.test_isprs import main
+    from resuneta_torch.models import UNet
+    from resuneta_torch.train import checkpoint, create_train_state
+
+    _write_scene(str(tmp_path))
+    weights = str(tmp_path / "best_model.ckpt")
+    checkpoint.save_best(weights, create_train_state(UNet(5, device="cpu")),
+                         0, 1.0)
+    metrics, cm = main(["--model_path", weights, "--dataset_path",
+                        str(tmp_path), "-ps", "64", "--resunet_a", "False",
+                        "--output_path", str(tmp_path / "preds"),
+                        "--batch_size", "4", "--device", "cpu"])
+    assert "mIoU" in capsys.readouterr().out
+    assert cm.sum() == 128 * 192
+    assert (tmp_path / "preds" / "pred_seg_reconstructed.jpeg").exists()
 
 
 # ----------------------------------------------------------- default device

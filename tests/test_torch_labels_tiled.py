@@ -22,6 +22,11 @@ from resuneta_tpu.ops import boundary as jboundary
 from resuneta_tpu.ops import distance as jdistance
 from resuneta_tpu.ops.pallas import canny as jcanny
 from resuneta_tpu.ops.pallas import jfa as jjfa
+from util_torch import one_thread  # noqa: F401  (a fixture)
+
+# bit-for-bit comparisons of elementwise and min/max results: the thread
+# count moves nothing they check (see one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def voronoi_ids(n, shape, classes, rng, sites=12):

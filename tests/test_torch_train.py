@@ -61,10 +61,24 @@ def _stash():
 
 
 @functools.cache
+def step_variables():
+    """The step's seeded reference weights, once a process: the train-step
+    files (this one, _dense, _modes, _tail) share them, and tracing Flax's
+    init is most of their cost. The reference's RESUNETA_* switches change
+    no variable (init traces the eval path). Read-only: every user copies
+    what it changes."""
+    jmod = jm.ResUnetA(NC, img_size=PS, multitasking=True)
+    variables = flax_variables(jmod, [jnp.zeros((1, PS, PS, 3))], seed=3)
+    for a in jax.tree.leaves(variables):
+        a.setflags(write=False)
+    return variables
+
+
+@functools.cache
 def _jax_step():
     """The reference step, once: JAX variables, raw batch, new state, row."""
     jmod = jm.ResUnetA(NC, img_size=PS, multitasking=True)
-    variables = flax_variables(jmod, [jnp.zeros((1, PS, PS, 3))], seed=3)
+    variables = step_variables()
     raw = _raw_batch()
     tx = optax.chain(_stash(), optax.adam(LR, b1=0.9))
     jstate = JTrainState(step=jnp.asarray(0, jnp.int32),

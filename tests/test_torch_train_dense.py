@@ -33,9 +33,8 @@ from resuneta_tpu.ops.pallas import densemm as jdensemm
 from resuneta_tpu.ops.pallas import poolconv as jpoolconv
 from resuneta_tpu.train import make_train_step as jmake_train_step
 from resuneta_tpu.train.state import TrainState as JTrainState
-from test_torch_model import flax_variables
 from test_torch_train import (BS, LR, NC, PS, WEIGHTS, _grad_err, _grads,
-                              _raw_batch, _stash)
+                              _raw_batch, _stash, step_variables)
 
 HEAD_LEAVES = ("seg1", "seg2", "seg3", "Conv_6", "Conv_7", "Conv_9",
                "Conv_10", "Conv_11")
@@ -53,7 +52,7 @@ def _jax_dense_step():
         mp.setenv("RESUNETA_DENSE_TRUNK", "1")
         mp.setenv("RESUNETA_DENSEMM_INTERPRET", "1")
         jmod = jm.ResUnetA(NC, img_size=PS, multitasking=True)
-        variables = flax_variables(jmod, [jnp.zeros((1, PS, PS, 3))], seed=3)
+        variables = step_variables()
         raw = _raw_batch()
         tx = optax.chain(_stash(), optax.adam(LR, b1=0.9))
         jstate = JTrainState(step=jnp.asarray(0, jnp.int32),

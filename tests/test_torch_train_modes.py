@@ -34,9 +34,8 @@ from resuneta_tpu.data import make_device_pipeline as jmake_device_pipeline
 from resuneta_tpu.models import resuneta as jm
 from resuneta_tpu.train import make_train_step as jmake_train_step
 from resuneta_tpu.train.state import TrainState as JTrainState
-from test_torch_model import flax_variables
 from test_torch_train import (BS, LR, NC, PS, WEIGHTS, _grad_err, _grads,
-                              _raw_batch, _stash)
+                              _raw_batch, _stash, step_variables)
 
 HEAD_LEAVES = ("seg1", "seg2", "seg3", "Conv_6", "Conv_7", "Conv_9",
                "Conv_10", "Conv_11")
@@ -64,7 +63,7 @@ def jax_step(env):
         for k, v in env:
             mp.setenv(k, v)
         jmod = jm.ResUnetA(NC, img_size=PS, multitasking=True)
-        variables = flax_variables(jmod, [jnp.zeros((1, PS, PS, 3))], seed=3)
+        variables = step_variables()
         raw = _raw_batch()
         tx = optax.chain(_stash(), optax.adam(LR, b1=0.9))
         jstate = JTrainState(step=jnp.asarray(0, jnp.int32),

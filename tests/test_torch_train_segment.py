@@ -17,6 +17,7 @@ import torch
 
 from resuneta_torch.ops import convseg
 from resuneta_tpu.ops.pallas import convseg as jconvseg
+from util_torch import one_thread  # noqa: F401  (a fixture)
 
 NAMES = ["dx", "dgamma", "dbeta", "dmean", "dvar", "dw", "dbias"]
 
@@ -394,6 +395,7 @@ def _k9_emulation(x, g, a, b, mean, invstd, w, d, act):
     (2, 3, 80, 3),      # 1 x 128 tiles overhanging W by 48, two images
     (1, 2, 128, 70),    # BW + 2d > 256: a box a tap at W >= 64
 ])
+@pytest.mark.usefixtures("one_thread")
 def test_k9_tiling_emulation_matches_plain(N, H, W, d):
     """K9's work items, halo tap offsets, M tile -> (tap, c0) map and
     chunked dW partials, emulated in torch, against segment_bwd_reference

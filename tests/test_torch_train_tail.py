@@ -14,7 +14,7 @@ from resuneta_torch.ops import convseg
 from resuneta_tpu.models import resuneta as jm
 from resuneta_tpu.ops.pallas import densemm as jdensemm
 from resuneta_tpu.ops.pallas import poolconv as jpoolconv
-from test_torch_train import BS, NC, PS
+from test_torch_train import BS, NC, PS, step_variables
 from test_torch_train_modes import (check_bn_running, check_grads,
                                     check_row, run_mode)
 
@@ -62,8 +62,8 @@ def test_tail_reference_runs_its_dense_tail():
                 return _f(*a)
             mp.setattr(mod, name, counted)
         jmod = jm.ResUnetA(NC, img_size=PS, multitasking=True)
-        variables = jax.eval_shape(lambda: jmod.init(
-            jax.random.PRNGKey(0), jnp.zeros((1, PS, PS, 3)), train=False))
+        # the step's weights (init traces the eval path: no K3/K4 call)
+        variables = step_variables()
         calls.update(K3=0, K4=0)
         jax.eval_shape(lambda v: jmod.apply(
             v, jnp.zeros((BS, PS, PS, 3)), train=True,
