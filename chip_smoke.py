@@ -118,15 +118,41 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             plus expected_eval_counts for its eval steps (44 K1 and the
             labels' EDT and Canny launches each). Its row: patches/s and
             seconds of each epoch, the phase's wall time, the launches.
-12. kernels line (K1-K10; the launches count the train_cli runs too),
-            then the last line {"ok": true, "device": {...}}.
+12. amazon - the Amazon deforestation workload through its three CLIs
+            in this process (phase_amazon): a seeded scene of two 7-band
+            years at 2560 x 1536 (5 x 3 tiles of 512^2) under
+            build/amazon/; preprocess_amazon at 128 px, stride 128;
+            train_amazon with the full-width 14-band multitask ResUnet-a
+            d6 (no colour head, WCE, f32, 128 px, batch 8, 1 epoch) in tile
+            mode with its whole-scene eval, and from the preprocessed set;
+            test_amazon on the best checkpoint, whose metrics and
+            probability map must equal the training eval's. Each CLI's
+            launches against expected_counts(patch=128, f32=True) for its
+            train steps, expected_eval_counts for its eval steps and 44 K1
+            a 32-patch batch of the scene. Then the 64 px Amazon step, card
+            against the CPU plain path, beside the CPU with one thread
+            against many (amazon_64px_f32); 10 bare warm steps of the 128
+            px, batch 8 step with their launches (amazon_warm_steps: the
+            median warm step and patches/s; the CLI epochs' rates are cold
+            smoke readings); K3 and K4 in f32 alone at the 128 px step's
+            shapes (k3_f32_128, k4_f32_128); K5 and K6 bit for bit on 28
+            planes of 128^2 (k5_128: the EDT's cluster of 2 blocks,
+            k6_128). Its row: each CLI epoch's patches/s, the scene's
+            Mpix/s, the test time, peak memory and the card.
+13. kernels line (K1-K10; the launches count the train_cli and amazon
+            runs too; K3's and K4's f32_at_128 the 128 px f32 calls, K5's
+            and K6's at_128 the 128^2 planes), then the last line
+            {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is false
 or the package is not beside this file.
 """
 
+import contextlib
+import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -207,25 +233,43 @@ HEAD_LEAVES = ("seg1", "seg2", "seg3", "Conv_6", "Conv_7", "Conv_9",
 LAST_BLOCK = "ResBlockA_10"
 # the leaves K3's and K4's backward feed straight after the heads
 DENSE_TAIL = ("Combine_5", "PSPPooling_1")
-# K3's 12 calls on the dense-trunk train step at 256 px: (name, parts as
-# (cin, input H = W, act, ups, stride), cout); K4's 3: (name, C, H, cout, k)
-K3_CALLS = (
-    ("Conv_1 s2", ((32, 256, False, 1, 2),), 64),
-    ("Conv_2 s2", ((64, 128, False, 1, 2),), 128),
-    ("Conv_3 s2", ((128, 64, False, 1, 2),), 256),
-    ("UpSampleConv_2", ((256, 32, False, 1, 1),), 64),
-    ("Combine_2", ((64, 32, True, 2, 1), (128, 64, False, 1, 1)), 128),
-    ("UpSampleConv_3", ((128, 64, False, 1, 1),), 32),
-    ("Combine_3", ((32, 64, True, 2, 1), (64, 128, False, 1, 1)), 64),
-    ("UpSampleConv_4", ((64, 128, False, 1, 1),), 16),
-    ("Combine_4", ((16, 128, True, 2, 1), (32, 256, False, 1, 1)), 32),
-    ("Combine_5", ((32, 256, True, 1, 1), (32, 256, False, 1, 1)), 32),
-    ("PSPPooling_1 level 1", ((32, 256, False, 1, 1),), 8),
-    ("PSPPooling_1 projection",
-     ((8, 256, False, 1, 1), (8, 128, False, 2, 1), (8, 64, False, 4, 1),
-      (8, 32, False, 8, 1), (32, 256, False, 1, 1)), 32),
-)
-K4_CALLS = tuple((f"PSPPooling_1 level {k}", 32, 256, 8, k) for k in (2, 4, 8))
+# K3's 12 calls on a dense-trunk train step at patch P: (name, parts as
+# (cin, input H = W, act, ups, stride), cout); K4's: (name, C, H, cout, k),
+# one a pooled PSP level (2 and 4 from 128 px, 8 from 256 px; the levels
+# follow the model's img_size, models/resuneta.py PSPPooling)
+def psp_pooled(P):
+    return [2] + ([4] if P >= 128 else []) + ([8] if P >= 256 else [])
+
+
+def k3_calls(P):
+    levels = [1] + psp_pooled(P)
+    return (
+        ("Conv_1 s2", ((32, P, False, 1, 2),), 64),
+        ("Conv_2 s2", ((64, P // 2, False, 1, 2),), 128),
+        ("Conv_3 s2", ((128, P // 4, False, 1, 2),), 256),
+        ("UpSampleConv_2", ((256, P // 8, False, 1, 1),), 64),
+        ("Combine_2", ((64, P // 8, True, 2, 1), (128, P // 4, False, 1, 1)),
+         128),
+        ("UpSampleConv_3", ((128, P // 4, False, 1, 1),), 32),
+        ("Combine_3", ((32, P // 4, True, 2, 1), (64, P // 2, False, 1, 1)),
+         64),
+        ("UpSampleConv_4", ((64, P // 2, False, 1, 1),), 16),
+        ("Combine_4", ((16, P // 2, True, 2, 1), (32, P, False, 1, 1)), 32),
+        ("Combine_5", ((32, P, True, 1, 1), (32, P, False, 1, 1)), 32),
+        ("PSPPooling_1 level 1", ((32, P, False, 1, 1),), 8),
+        ("PSPPooling_1 projection",
+         tuple((8, P // k, False, k, 1) for k in levels) +
+         ((32, P, False, 1, 1),), 32),
+    )
+
+
+def k4_calls(P):
+    return tuple((f"PSPPooling_1 level {k}", 32, P, 8, k)
+                 for k in psp_pooled(P))
+
+
+K3_CALLS = k3_calls(PATCH)
+K4_CALLS = k4_calls(PATCH)
 # the bf16 K3 calls with an upsampled part: their backward is four launches
 K3_UPS_CALLS = sum(any(p[3] > 1 for p in parts) for _, parts, _ in K3_CALLS)
 TOLERANCE = (f"bf16 results: |err| <= {ATOL_OF_MAX}*max|plain| + "
@@ -284,9 +328,10 @@ def check_close(name, got, want):
     return err.max().item()
 
 
-def bound(flops, nbytes):
-    """The least time (ms) the card could take, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """The least time (ms) the card could take at `peak` operations a
+    second, and what bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -595,12 +640,13 @@ def phase_k10(convseg, F):
     return rows
 
 
-def k3_work(parts, cout, N, H):
+def k3_work(parts, cout, N, H, itemsize=2):
     """(fwd flops, fwd bytes, bwd flops, bwd bytes) of one K3 call at
-    output H x H, bf16: each input element the function needs read once
-    (a strided part's read pixels only, but its dx written in full), each
-    output written once, W in bf16, dW and the sums in f32. An upsampled
-    part's product is counted at its own resolution."""
+    output H x H, in bf16 (itemsize 2) or f32 (4): each input element the
+    function needs read once (a strided part's read pixels only, but its dx
+    written in full), each output written once, W in the compute type, dW
+    and the sums in f32. An upsampled part's product is counted at its own
+    resolution."""
     flops = nread = nfull = 0
     for cin, h, _, k, s in parts:
         pix = N * (H // k) ** 2 if s == 1 else N * H * H
@@ -609,29 +655,34 @@ def k3_work(parts, cout, N, H):
         nfull += N * h * h * cin
     cin_all = sum(p[0] for p in parts)
     out = N * H * H * cout
-    w_bytes = cin_all * cout * 2
-    fwd_bytes = (nread + out) * 2 + w_bytes + cout * 4
-    bwd_bytes = (nread + out + nfull) * 2 + w_bytes + (cin_all + 1) * \
-        cout * 4
+    w_bytes = cin_all * cout * itemsize
+    fwd_bytes = (nread + out) * itemsize + w_bytes + cout * 4
+    bwd_bytes = (nread + out + nfull) * itemsize + w_bytes + \
+        (cin_all + 1) * cout * 4
     return flops, fwd_bytes, 2 * flops, bwd_bytes
 
 
-def phase_k3(densemm, F):
+def phase_k3(densemm, F, convseg, calls=K3_CALLS, N=TRAIN_BATCH,
+             dtype=torch.bfloat16, phase="k3"):
+    """K3's `calls` at batch N in `dtype` against the plain versions, each
+    way timed beside the bound, the plain version and the library pair
+    (in f32 with TF32 off: the same precision as the kernel's)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    f32 = dtype == torch.float32
+    peak = PEAK_SCALAR_OPS if f32 else PEAK_BF16_FLOPS
     rows = []
-    for name, parts, cout in K3_CALLS:
-        N = TRAIN_BATCH
+    for name, parts, cout in calls:
         s0 = parts[0][4]
         H = parts[0][1] // s0 * parts[0][3]
         xs = [torch.randn((N, h, h, c), generator=g, device="cuda").to(
-            torch.bfloat16) for c, h, _, _, _ in parts]
+            dtype) for c, h, _, _, _ in parts]
         cin = sum(p[0] for p in parts)
         w = torch.randn((cin, cout), generator=g, device="cuda") / cin ** 0.5
         bias = torch.randn(cout, generator=g, device="cuda") * 0.1
         spec = {"acts": [p[2] for p in parts], "ups": [p[3] for p in parts],
                 "strides": [p[4] for p in parts]}
         gr = torch.randn((N, H, H, cout), generator=g, device="cuda").to(
-            torch.bfloat16)
+            dtype)
 
         y = densemm.dense_mm_fwd(xs, w, bias, **spec)
         got = densemm.dense_mm_bwd(xs, gr, w, **spec)
@@ -650,28 +701,31 @@ def phase_k3(densemm, F):
             densemm.upsample_nearest(torch.relu(x) if a else x, k)
             for x, (_, _, a, k, _) in zip(xs, parts)], dim=3).permute(
                 0, 3, 1, 2)
-        wl = w.t().to(torch.bfloat16)[:, :, None, None].contiguous(
+        wl = w.t().to(dtype)[:, :, None, None].contiguous(
             memory_format=torch.channels_last)
-        bl = bias.to(torch.bfloat16)
+        bl = bias.to(dtype)
         gl = gr.permute(0, 3, 1, 2)
         st = [s0, s0]
         fwd_ms = cuda_ms(lambda: densemm.dense_mm_fwd(xs, w, bias, **spec),
                          reps=10)
         bwd_ms = cuda_ms(lambda: densemm.dense_mm_bwd(xs, gr, w, **spec),
                          reps=10)
-        lib_fwd = cuda_ms(lambda: F.conv2d(cat, wl, bl, stride=s0), reps=10)
-        lib_bwd = cuda_ms(lambda: torch.ops.aten.convolution_backward(
-            gl, cat, wl, [cout], st, [0, 0], [1, 1], False, [0, 0], 1,
-            [True, True, True]), reps=10)
+        with convseg.no_tf32():
+            lib_fwd = cuda_ms(lambda: F.conv2d(cat, wl, bl, stride=s0),
+                              reps=10)
+            lib_bwd = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                gl, cat, wl, [cout], st, [0, 0], [1, 1], False, [0, 0], 1,
+                [True, True, True]), reps=10)
         plain_fwd = cuda_ms(lambda: densemm.dense_mm_reference(
             xs, w, bias, **spec), reps=3, warmup=1)
         plain_bwd = cuda_ms(lambda: densemm.dense_mm_bwd_reference(
             xs, gr, w, **spec), reps=3, warmup=1)
-        ff, fb, bf, bb = k3_work(parts, cout, N, H)
-        b_fwd, by_fwd = bound(ff, fb)
-        b_bwd, by_bwd = bound(bf, bb)
-        row = {"phase": "k3", "call": name, "N": N, "H": H, "cout": cout,
-               "parts": [list(p) for p in parts],
+        ff, fb, bf, bb = k3_work(parts, cout, N, H, 4 if f32 else 2)
+        b_fwd, by_fwd = bound(ff, fb, peak)
+        b_bwd, by_bwd = bound(bf, bb, peak)
+        row = {"phase": phase, "call": name, "N": N, "H": H, "cout": cout,
+               "dtype": str(dtype).removeprefix("torch."), "parts":
+               [list(p) for p in parts], "peak_flops": peak,
                "design": densemm.k3_design(xs[0].dtype), "max_abs_err": err,
                "tolerance": TOLERANCE,
                "ms_fwd": fwd_ms, "ms_bwd": bwd_ms,
@@ -689,20 +743,25 @@ def phase_k3(densemm, F):
     return rows
 
 
-def phase_k4(poolconv, F):
+def phase_k4(poolconv, F, convseg, calls=K4_CALLS, N=TRAIN_BATCH,
+             dtype=torch.bfloat16, phase="k4"):
+    """K4's `calls` at batch N in `dtype` against the plain versions, as
+    phase_k3."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    f32 = dtype == torch.float32
+    peak = PEAK_SCALAR_OPS if f32 else PEAK_BF16_FLOPS
+    isz = 4 if f32 else 2
     rows = []
-    for name, C, S, cout, k in K4_CALLS:
-        N = TRAIN_BATCH
+    for name, C, S, cout, k in calls:
         x = torch.randn((N, S, S, C), generator=g, device="cuda")
         # planted exact ties: half the channels on a grid of 1/4, so most
         # of their windows hold their max more than once
         x[..., :C // 2] = torch.round(x[..., :C // 2] * 4) / 4
-        x = x.to(torch.bfloat16)
+        x = x.to(dtype)
         w = torch.randn((C, cout), generator=g, device="cuda") / C ** 0.5
         bias = torch.randn(cout, generator=g, device="cuda") * 0.1
         gr = torch.randn((N, S // k, S // k, cout), generator=g,
-                         device="cuda").to(torch.bfloat16)
+                         device="cuda").to(dtype)
         y = poolconv.pool_conv_fwd(x, w, bias, k=k)
         got = poolconv.pool_conv_bwd(x, gr, w, k=k)
         torch.cuda.synchronize()
@@ -720,9 +779,9 @@ def phase_k4(poolconv, F):
         # routes a tie to one element)
         xl = x.permute(0, 3, 1, 2)
         pooled, idx = F.max_pool2d(xl, k, return_indices=True)
-        wl = w.t().to(torch.bfloat16)[:, :, None, None].contiguous(
+        wl = w.t().to(dtype)[:, :, None, None].contiguous(
             memory_format=torch.channels_last)
-        bl = bias.to(torch.bfloat16)
+        bl = bias.to(dtype)
         gl = gr.permute(0, 3, 1, 2)
 
         def lib_bwd_fn():
@@ -736,22 +795,25 @@ def phase_k4(poolconv, F):
                          reps=10)
         bwd_ms = cuda_ms(lambda: poolconv.pool_conv_bwd(x, gr, w, k=k),
                          reps=10)
-        lib_fwd = cuda_ms(lambda: F.conv2d(F.max_pool2d(xl, k), wl, bl),
-                          reps=10)
-        lib_bwd = cuda_ms(lib_bwd_fn, reps=10)
+        with convseg.no_tf32():
+            lib_fwd = cuda_ms(lambda: F.conv2d(F.max_pool2d(xl, k), wl, bl),
+                              reps=10)
+            lib_bwd = cuda_ms(lib_bwd_fn, reps=10)
         plain_fwd = cuda_ms(lambda: poolconv.pool_conv_reference(
             x, w, bias, k=k), reps=3, warmup=1)
         plain_bwd = cuda_ms(lambda: poolconv.pool_conv_bwd_reference(
             x, gr, w, k=k), reps=3, warmup=1)
         Mo = N * (S // k) ** 2
         ff = 2 * Mo * C * cout
-        xb = N * S * S * C * 2
-        fb = xb + Mo * cout * 2 + C * cout * 2 + cout * 4
-        bb = 2 * xb + Mo * cout * 2 + C * cout * 2 + (C + 1) * cout * 4
-        b_fwd, by_fwd = bound(ff, fb)
-        b_bwd, by_bwd = bound(2 * ff, bb)
-        row = {"phase": "k4", "call": name, "N": N, "H": S, "C": C,
-               "cout": cout, "k": k, "design": poolconv.K4_DESIGN,
+        xb = N * S * S * C * isz
+        fb = xb + Mo * cout * isz + C * cout * isz + cout * 4
+        bb = 2 * xb + Mo * cout * isz + C * cout * isz + (C + 1) * cout * 4
+        b_fwd, by_fwd = bound(ff, fb, peak)
+        b_bwd, by_bwd = bound(2 * ff, bb, peak)
+        row = {"phase": phase, "call": name, "N": N, "H": S, "C": C,
+               "cout": cout, "k": k, "dtype": str(dtype).removeprefix(
+                   "torch."), "peak_flops": peak,
+               "design": poolconv.K4_DESIGN,
                "tie_window_share": tie_share,
                "max_abs_err": err,
                "tolerance": TOLERANCE,
@@ -799,20 +861,22 @@ EDT_LAYOUTS = {256: ({"design": "tail"}, {"design": "tail", "tile": 4}),
 CANNY_DESIGN = "two_pass"
 
 
-# class planes a train batch gives the label kernels, by patch: Voronoi
-# samples x 5 classes and uniform-noise planes, beside an all-zero and an
+# class planes a train batch gives the label kernels, by patch: (Voronoi
+# samples, classes, uniform-noise planes), beside an all-zero and an
 # all-one plane (80 planes at 256^2 as at batch 16, 40 at 512^2 as at
-# batch 8, 10 at 1024^2 as at batch 2)
-LABEL_PLANES = {256: (14, 8), 512: (6, 8), 1024: (1, 3)}
+# batch 8, 10 at 1024^2 as at batch 2, all ISPRS's 5 classes; 28 at 128^2,
+# the 8 x 3 class planes of the Amazon step at batch 8 and 4 more)
+LABEL_PLANES = {128: (8, 3, 2), 256: (14, 5, 8), 512: (6, 5, 8),
+                1024: (1, 5, 3)}
 
 
 def label_planes(size=PATCH):
     """int32 planes of size^2 (LABEL_PLANES): Voronoi blobs, uniform
     noise, an all-zero and an all-one plane."""
-    samples, noise = LABEL_PLANES[size]
+    samples, classes, noise = LABEL_PLANES[size]
     rng = np.random.default_rng(SEED + 5)
-    ids = voronoi_ids(samples, size, NUM_CLASSES, rng)
-    blobs = np.eye(NUM_CLASSES, dtype=np.int32)[ids].transpose(0, 3, 1, 2)
+    ids = voronoi_ids(samples, size, classes, rng)
+    blobs = np.eye(classes, dtype=np.int32)[ids].transpose(0, 3, 1, 2)
     planes = np.concatenate([
         blobs.reshape(-1, size, size),
         (rng.random((noise, size, size)) < 0.5).astype(np.int32),
@@ -821,16 +885,20 @@ def label_planes(size=PATCH):
     return torch.from_numpy(planes).cuda()
 
 
-def phase_labels(distance, boundary):
-    """K5 and K6, bit for bit. Bound (label_row): 4 bytes in and 4 out a
+def phase_labels(distance, boundary, size=PATCH):
+    """K5 and K6, bit for bit, on label_planes(size); rows "k5" and "k6",
+    with the size after an underscore where it is not PATCH (the Amazon
+    step's 128^2: the EDT's cluster of 2 blocks, no other check's
+    layout). Bound (label_row): 4 bytes in and 4 out a
     pixel, and the integer work the function needs on these planes
     counted against PEAK_SCALAR_OPS: K5 ~100 operations per JFA pass for
     each pixel that is not its own seed (edt_ops), K6 ~50 a pixel (Sobel,
     NMS, thresholds, cross dilation; these class planes need no
     hysteresis round). The EDT's row names its design (distance.plan) and
     its launches a call."""
-    planes = label_planes()
+    planes = label_planes(size)
     H, W = planes.shape[1:]
+    tag = "" if size == PATCH else f"_{size}"
     rows = {}
     for name, mod, fn, ref, ops in (
             ("k5", distance, distance.distance_transform_edt,
@@ -844,12 +912,15 @@ def phase_labels(distance, boundary):
         same(name, got, ref(planes))
         ms = cuda_ms(lambda: fn(planes), reps=10)
         plain_ms = cuda_ms(lambda: ref(planes), reps=2, warmup=1)
-        row = {"phase": name, **label_row(planes, ms, plain_ms, ops),
+        row = {"phase": name + tag, **label_row(planes, ms, plain_ms, ops),
                "launches_per_call": launches}
-        row["design"] = distance.plan(H, W)["design"] if name == "k5" \
-            else CANNY_DESIGN
+        if name == "k5":
+            layout = distance.plan(H, W)
+            row.update(design=layout["design"], cluster_blocks=layout["cs"])
+        else:
+            row["design"] = CANNY_DESIGN
         emit(row)
-        rows[name] = row
+        rows[name + tag] = row
     return rows
 
 
@@ -990,24 +1061,31 @@ def rel_l2(a, b, atol=1e-6):
     return 0.0 if d <= atol else d / max(b.norm().item(), 1e-12)
 
 
-def step_64px(device, raw, **modes):
+def step_64px(device, raw, amazon=False, **modes):
     """One 64 px, bs 2, f32 dense-trunk train step from seeded weights on
-    `device`, in the opt-in `modes` (ResUnetA arguments): the metrics row,
-    every parameter's gradient and every BN running buffer, in f64 on the
+    `device`, in the opt-in `modes` (ResUnetA arguments): the ISPRS step
+    (5 classes, Tanimoto on the four heads, make_device_pipeline on uint8
+    patches) or with `amazon` the Amazon CLI's (14 bands, 3 classes, no
+    colour head, the WCE on seg, bound and dist, make_label_head_pipeline
+    on float patches and a one-hot). Returns the metrics row, every
+    parameter's gradient and every BN running buffer, in f64 on the
     CPU."""
     from resuneta_torch import losses, models
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.train import create_train_state, make_train_step
 
-    model = models.ResUnetA(NUM_CLASSES, img_size=64, dtype=torch.float32,
-                            generator=torch.Generator().manual_seed(SEED + 7),
-                            device=device, dense_trunk=True, **modes)
-    state = create_train_state(model, "adam", 1e-4)
-    step = make_train_step(losses.make_losses("tanimoto"),
-                           {h: 1.0 for h in HEADS}, True,
-                           preprocess=make_device_pipeline(NUM_CLASSES, 1,
-                                                           device=device),
-                           device=device)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    if amazon:
+        model, state, step = amazon_step(device, 64, gen, **modes)
+    else:
+        model = models.ResUnetA(NUM_CLASSES, img_size=64,
+                                dtype=torch.float32, generator=gen,
+                                device=device, dense_trunk=True, **modes)
+        state = create_train_state(model, "adam", 1e-4)
+        step = make_train_step(
+            losses.make_losses("tanimoto"), {h: 1.0 for h in HEADS}, True,
+            preprocess=make_device_pipeline(NUM_CLASSES, 1, device=device),
+            device=device)
     _, row = step(state, raw)
     grads = {k: p.grad.detach().cpu().double()
              for k, p in model.named_parameters()}
@@ -1015,13 +1093,49 @@ def step_64px(device, raw, **modes):
     return row.cpu().double(), grads, bufs
 
 
+def amazon_step(device, patch, gen, **modes):
+    """The Amazon CLI's f32 dense-trunk model (14 bands, 3 classes, no
+    colour head) at `patch` from `gen`'s weights, its Adam state and its
+    train step: the WCE on seg, bound and dist through
+    make_label_head_pipeline on float patches and a one-hot."""
+    from resuneta_torch import losses, models
+    from resuneta_torch.data import make_label_head_pipeline
+    from resuneta_torch.train import create_train_state, make_train_step
+
+    model = models.ResUnetA(AMAZON_CLASSES, img_size=patch, color_head=False,
+                            in_channels=AMAZON_BANDS, dtype=torch.float32,
+                            generator=gen, device=device, dense_trunk=True,
+                            **modes)
+    wce = losses.weighted_categorical_crossentropy(AMAZON_WCE)
+    step = make_train_step({h: wce for h in AMAZON_HEADS},
+                           {h: 1.0 for h in AMAZON_HEADS}, True,
+                           preprocess=make_label_head_pipeline(device),
+                           device=device)
+    return model, create_train_state(model, "adam", 1e-4), step
+
+
+def amazon_batch(batch, patch, rng):
+    """A float Amazon batch: standard-normal bands and a one-hot of
+    Voronoi class regions."""
+    ids = voronoi_ids(batch, patch, AMAZON_CLASSES, rng)
+    return {"image": rng.standard_normal(
+                (batch, patch, patch, AMAZON_BANDS)).astype(np.float32),
+            "seg": np.eye(AMAZON_CLASSES, dtype=np.float32)[ids]}
+
+
 def step_errors(got, want):
     """The readings STEP_TOL holds, of one 64 px step against another."""
     (rg, gg, bg), (rw, gw, bw) = got, want
     a = torch.cat([g.ravel() for g in gg.values()])
     b = torch.cat([g.ravel() for g in gw.values()])
+    # the losses the step has: the Amazon step's colour loss is 0 on both
+    # sides (no colour head), and a loss 0 on one side only reads inf
+    have = rw[:5] != 0
+    loss_rel = ((rg[:5] - rw[:5]).abs()[have] / rw[:5][have].abs()).max()
+    if (rg[:5][~have] != 0).any():
+        loss_rel = torch.tensor(float("inf"))
     return {
-        "loss_rel": ((rg[:5] - rw[:5]).abs() / rw[:5].abs()).max().item(),
+        "loss_rel": loss_rel.item(),
         "grads_rel_l2": rel_l2(a, b, atol=0),
         "heads_rel_l2": max(rel_l2(gg[k], gw[k]) for k in gw
                             if k.split(".")[0] in HEAD_LEAVES),
@@ -1032,27 +1146,32 @@ def step_errors(got, want):
         "bn_running_rel_l2": max(rel_l2(bg[k], bw[k]) for k in bw)}
 
 
-def step_card_vs_cpu(threads=True, **modes):
-    """The 64 px, bs 2, f32 dense-trunk step (in the opt-in `modes`) on the
-    card (TF32 off) against the CPU plain path, from the same weights and
-    batch, and (with `threads`) the CPU with one thread against the CPU
-    with many, the same readings of the order of sums alone. Returns the
-    readings, the kernel launches of the card's step, and the names of the
-    readings past STEP_TOL."""
+def step_card_vs_cpu(threads=True, amazon=False, **modes):
+    """The 64 px, bs 2, f32 dense-trunk step (step_64px: ISPRS, or the
+    Amazon CLI's with `amazon`, in the opt-in `modes`) on the card (TF32
+    off) against the CPU plain path, from the same weights and batch, and
+    (with `threads`) the CPU with one thread against the CPU with many,
+    the same readings of the order of sums alone. Returns the readings,
+    the kernel launches of the card's step, and the names of the readings
+    past STEP_TOL."""
     from resuneta_torch.ops import (boundary, convseg, densemm, distance,
                                     poolconv)
 
     rng = np.random.default_rng(SEED + 4)
-    raw = {"image_u8": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
-           "label_ids": voronoi_ids(2, 64, NUM_CLASSES, rng),
-           "aug": np.array([0, 3])}
-    cpu = step_64px("cpu", raw, **modes)
+    if amazon:
+        raw = amazon_batch(2, 64, rng)
+    else:
+        raw = {"image_u8": rng.integers(0, 256, (2, 64, 64, 3),
+                                        dtype=np.uint8),
+               "label_ids": voronoi_ids(2, 64, NUM_CLASSES, rng),
+               "aug": np.array([0, 3])}
+    cpu = step_64px("cpu", raw, amazon, **modes)
     out = {}
     if threads:
         n = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
-            cpu1 = step_64px("cpu", raw, **modes)
+            cpu1 = step_64px("cpu", raw, amazon, **modes)
         finally:
             torch.set_num_threads(n)
         out[f"cpu_1_vs_{n}_threads"] = step_errors(cpu1, cpu)
@@ -1064,14 +1183,14 @@ def step_card_vs_cpu(threads=True, **modes):
                 (convseg, "BWDONLY_LAUNCHES"))
     before = [getattr(m, k) for m, k in counters]
     with convseg.no_tf32():
-        card = step_64px("cuda", raw, **modes)
+        card = step_64px("cuda", raw, amazon, **modes)
     torch.cuda.synchronize()
     launches = dict(zip(("K1", "K2", "K3", "K3_bwd", "K4", "K4_bwd",
                          "K5/K7", "K6", "K9", "K10"),
                         (getattr(m, k) - c for (m, k), c in
                          zip(counters, before))))
     errs = step_errors(card, cpu)
-    return {"modes": modes, "card_vs_cpu": errs, **out,
+    return {"modes": modes, "amazon": amazon, "card_vs_cpu": errs, **out,
             "tolerance": STEP_TOL, "launches": launches,
             "failed": [k for k, v in errs.items() if not v < STEP_TOL[k]]}
 
@@ -1147,23 +1266,25 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
 # K7, the port all to jfa.cu) and one Canny call of 2 launches, pass 1 and
 # pass 2 (boundary.PASSES; K6 up to 384^2, K8 above) over all the batch's
 # class planes
-LABEL_LAUNCHES = {256: {"K5/K7": 1, "K6": 2, "K8": 0},
+LABEL_LAUNCHES = {128: {"K5/K7": 1, "K6": 2, "K8": 0},
+                  256: {"K5/K7": 1, "K6": 2, "K8": 0},
                   512: {"K5/K7": 8, "K6": 0, "K8": 2},
                   1024: {"K5/K7": 9, "K6": 0, "K8": 2}}
 
 
 def expected_counts(steps, dense, patch=PATCH, segments=44, k1=True,
-                    wide=0, bwd_only=False):
+                    wide=0, bwd_only=False, f32=False):
     """Per step: `segments` fused segments, each one K1 launch forward
     (none with k1=False: segment mode "2") and one K2 call (4 launches)
     backward, `wide` of them at C = 256 (K9), all of them from
     FusedSegmentBwdOnly's backward (K10) with bwd_only; on the dense
-    trunk's tail 12 K3 and 3 K4 calls each way (K3: one launch forward,
-    three backward, and a fourth before the backward of each K3 call with
-    an upsampled part: K3_UPS_CALLS of them; K4: one forward, two
-    backward); LABEL_LAUNCHES."""
-    k3, k4 = (12, 3) if dense else (0, 0)
-    k3_bwd = 3 * k3 + (K3_UPS_CALLS if dense else 0)
+    trunk's tail 12 K3 calls and a K4 call a pooled PSP level (psp_pooled:
+    3 at 256 px and up, 2 at 128 px) each way (K3: one launch forward,
+    three backward, and in bf16 a fourth before the backward of each K3
+    call with an upsampled part: K3_UPS_CALLS of them; K4: one forward,
+    two backward); LABEL_LAUNCHES."""
+    k3, k4 = (12, len(psp_pooled(patch))) if dense else (0, 0)
+    k3_bwd = 3 * k3 + (K3_UPS_CALLS if dense and not f32 else 0)
     per = {"K1": segments if k1 else 0, "K2": 4 * segments,
            "K2 calls": segments, "K3": k3,
            "K3 calls": k3, "K3 bwd": k3_bwd, "K3 bwd calls": k3, "K4": k4,
@@ -1493,6 +1614,264 @@ def phase_train_cli(mods, smi):
     return row
 
 
+# the amazon phase: the Amazon deforestation workload through the port's
+# three CLIs in this process, on a seeded scene written under build/amazon/:
+# two years of AMAZON_YEAR_BANDS bands each, CHW f32, AMAZON_SCENE (H, W) =
+# 5 x 3 tiles of 512^2, a reference whose 128^2 cells hold a deforestation
+# blob at random (each blob past the 5% filter), a past reference and an
+# all -1 valid mask. The model is the full-width 14-band ResUnet-a d6
+# without the colour head, multitask, f32 (the Amazon CLIs have no dtype),
+# at 128 px, batch 8: per train step the dense trunk's launches at 128 px
+# (expected_counts, f32: K3's backward 3 launches a call, 2 K4 calls each
+# way), per eval step 44 K1 and the labels' EDT and Canny launches, and 44
+# K1 a batch of AMAZON_EVAL_BATCH patches of the whole-scene prediction.
+AMAZON_SCENE = (2560, 1536)
+AMAZON_YEAR_BANDS = 7
+AMAZON_BANDS = 2 * AMAZON_YEAR_BANDS
+AMAZON_CLASSES = 3
+AMAZON_PATCH, AMAZON_BATCH = 128, 8
+AMAZON_EVAL_BATCH = 32        # infer.amazon.prediction's batch
+AMAZON_STEPS = 10             # bare warm steps timed after the CLIs
+AMAZON_HEADS = ("seg", "bound", "dist")
+AMAZON_WCE = (0.5, 0.5, 0.0)  # the train CLI's default class weights
+AMAZON_SCENE_ARGS = ["--image_t1", "t1.npy", "--image_t2", "t2.npy",
+                     "--reference", "labels/ref.npy", "--past_reference",
+                     "labels/past.npy", "--mask_ref", "mask_ref.npy"]
+
+
+def amazon_scene(root):
+    """Write the seeded Amazon_npy tree under `root`."""
+    rng = np.random.default_rng(SEED + 11)
+    H, W = AMAZON_SCENE
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(exist_ok=True)
+    for name in ("t1", "t2"):
+        bands = rng.standard_normal((AMAZON_YEAR_BANDS, H, W),
+                                    dtype=np.float32)
+        np.save(root / f"{name}.npy", bands * 300.0 + 1000.0)
+    ref = np.zeros((H, W), np.uint8)
+    past = np.zeros((H, W), np.uint8)
+    P = AMAZON_PATCH
+    for r in range(0, H, P):
+        for c in range(0, W, P):
+            if rng.uniform() < 0.5:       # >= (P/3)^2 px: past 5% of P^2
+                h, w = rng.integers(P // 3, P * 5 // 8, 2)
+                r0, c0 = r + rng.integers(0, P - h), c + rng.integers(0, P - w)
+                ref[r0:r0 + h, c0:c0 + w] = 1
+            if rng.uniform() < 0.2:
+                h, w = rng.integers(P // 20, P // 5, 2)
+                r0, c0 = r + rng.integers(0, P - h), c + rng.integers(0, P - w)
+                past[r0:r0 + h, c0:c0 + w] = 1
+    np.save(root / "labels" / "ref.npy", ref)
+    np.save(root / "labels" / "past.npy", past)
+    np.save(root / "mask_ref.npy", np.full((H, W), -1.0, np.float32))
+
+
+def _run_cli(main, argv, log):
+    """main(argv) in this process with its stdout kept in `log`: (what it
+    returns, its stdout, seconds)."""
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    log.write_text(buf.getvalue())
+    return out, buf.getvalue(), secs
+
+
+def _eval_block(text):
+    """An Amazon CLI's printed eval, the confusion matrix to the
+    precision."""
+    i = text.index("Confusion  matrix")
+    return text[i:text.index("\n", text.index("Precision:", i))]
+
+
+def amazon_warm_steps(mods):
+    """AMAZON_STEPS bare train steps of the Amazon CLI's model at 128 px,
+    batch 8, f32 on one seeded batch, every kernel count set to 0 just
+    before and read just after (expected_counts). The first step pays the
+    first calls at its shapes; the rate is over the others."""
+    rng = np.random.default_rng(SEED + 3)
+    raw = amazon_batch(AMAZON_BATCH, AMAZON_PATCH, rng)
+    _, state, step = amazon_step("cuda", AMAZON_PATCH,
+                                 torch.Generator().manual_seed(SEED))
+    counters = kernel_counters(mods)
+    for m, k in counters.values():
+        setattr(m, k, 0)
+    rows, times = [], []
+    for _ in range(AMAZON_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, row = step(state, raw)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        rows.append(row.cpu().numpy())
+    counts = {name: getattr(m, k) for name, (m, k) in counters.items()}
+    want = expected_counts(AMAZON_STEPS, True, AMAZON_PATCH, f32=True)
+    if counts != want:
+        fail(f"amazon bare steps counts {counts}, expected {want}")
+    if not np.isfinite(np.stack(rows)).all():
+        fail(f"amazon bare steps: non-finite metric rows {rows}")
+    warm = times[1:]
+    med = median(times)
+    return {"steps": AMAZON_STEPS, "launches": counts,
+            "first_step_s": times[0], "step_s": times,
+            "median_warm_step_s": med, "min_warm_step_s": min(warm),
+            "max_warm_step_s": max(warm),
+            "patches_per_s": AMAZON_BATCH / med}
+
+
+def phase_amazon(mods, smi):
+    """The Amazon workload end to end on the card: preprocess_amazon at
+    128 px, stride 128; train_amazon (ResUnet-a, multitask, 1 epoch) in
+    tile mode with its whole-scene eval, and from the preprocessed set;
+    test_amazon on the tile run's best checkpoint, whose printed confusion
+    matrix and metrics, and class-1 probability map, must equal the
+    training eval's (one epoch: the checkpoint holds the weights that eval
+    ran). Every kernel count is set to 0 before each CLI and read after;
+    each must equal its expected counts. Then the 64 px Amazon step on the
+    card against the CPU plain path (STEP_TOL) with the CPU's 1-thread
+    against N-thread reading beside it; AMAZON_STEPS bare warm steps at
+    128 px, batch 8 (the rate the CLI epochs' cold first steps cannot
+    give); f32 K3 and K4 alone at the 128 px step's shapes (batch 8), and
+    K5 and K6 bit for bit on 128^2 planes (label_planes(128)), against
+    their plain versions."""
+    from resuneta_torch.cli import (preprocess_amazon, test_amazon,
+                                    train_amazon)
+    from resuneta_torch.train.loop import epoch_batches
+
+    t_phase = time.time()
+    work = WORK_DIR / "amazon"
+    shutil.rmtree(work, ignore_errors=True)
+    data = work / "data"
+    amazon_scene(data)
+    torch.cuda.reset_peak_memory_stats()
+    scene = ["--dataset_path", str(data)] + AMAZON_SCENE_ARGS
+    P, B = str(AMAZON_PATCH), str(AMAZON_BATCH)
+    model = ["--resunet_a", "True", "--multitasking", "True", "-ps", P,
+             "--seed", str(SEED)]
+    H, W = AMAZON_SCENE
+    scene_batches = math.ceil((H // AMAZON_PATCH) * (W // AMAZON_PATCH) /
+                              AMAZON_EVAL_BATCH)
+    counters = kernel_counters(mods)
+
+    def counted(name, main, argv):
+        for m, k in counters.values():
+            setattr(m, k, 0)
+        out, text, secs = _run_cli(main, argv, work / f"{name}.log")
+        return out, text, secs, {key: getattr(m, k)
+                                 for key, (m, k) in counters.items()}
+
+    def want(text, scene_eval):
+        """expected_counts of the run's train and eval steps (its printed
+        split sizes) and 44 K1 a batch of the whole-scene eval."""
+        n_tr, n_val = map(int, re.search(
+            r"Training patches: (\d+)  Validation patches: (\d+)",
+            text).groups())
+        steps = epoch_batches(n_tr, AMAZON_BATCH)[0]
+        w = expected_counts(steps, True, AMAZON_PATCH, f32=True)
+        for k, v in expected_eval_counts(
+                epoch_batches(n_val, AMAZON_BATCH)[0], AMAZON_PATCH).items():
+            w[k] += v
+        w["K1"] += EVAL_SEGMENTS * scene_batches * scene_eval
+        return w, steps, n_tr, n_val
+
+    runs = {}
+    _, text, secs, counts = counted(
+        "preprocess", preprocess_amazon.main,
+        scene + ["--patch_size", P, "--stride", P, "--output_path",
+                 str(work / "prep")])
+    if any(counts.values()):
+        fail(f"amazon preprocess launched kernels: {counts}")
+    manifest = json.loads((work / "prep" / "manifest.json").read_text())
+    runs["preprocess"] = {"seconds": secs, "manifest": manifest}
+    for name, extra, scene_eval in (
+            ("train_tiles", ["--stride", P], True),
+            ("train_preprocessed",
+             ["--preprocessed_path", str(work / "prep")], False)):
+        (state, history), text, secs, counts = counted(
+            name, train_amazon.main,
+            scene + model + ["-bs", B, "--epochs", "1", "-rp",
+                             str(work / name)] + extra)
+        w, steps, n_tr, n_val = want(text, scene_eval)
+        vals = [v for h in history for split in ("train", "val")
+                for v in h[split].values()]
+        if len(history) != 1 or not np.isfinite(vals).all():
+            fail(f"amazon {name}: non-finite history {history}")
+        if state.step != steps:
+            fail(f"amazon {name}: {state.step} train steps, expected {steps}")
+        if counts != w:
+            fail(f"amazon {name} counts {counts}, expected {w}")
+        row = {"seconds": secs, "train_patches": n_tr, "val_patches": n_val,
+               "train_steps": steps, "launches": counts,
+               "patches_per_s": [h["patches_per_sec"] for h in history],
+               "epoch_s": [h["time"] for h in history],
+               "val_loss": [h["val"]["loss"] for h in history]}
+        if scene_eval:
+            test_s = float(re.search(r"test time (\S+)", text).group(1))
+            row.update(eval=_eval_block(text), test_s=test_s,
+                       scene_mpix_per_s=H * W / test_s / 1e6)
+        runs[name] = row
+        del state
+    best = work / "train_tiles" / "best_model.ckpt"
+    (metrics, cm), text, secs, counts = counted(
+        "test", test_amazon.main,
+        scene + model + ["--model_path", str(best), "--output_path",
+                         str(work / "test")])
+    w = dict.fromkeys(counts, 0)
+    w["K1"] = EVAL_SEGMENTS * scene_batches
+    if counts != w:
+        fail(f"amazon test counts {counts}, expected {w}")
+    if _eval_block(text) != runs["train_tiles"]["eval"]:
+        fail("amazon test: its metrics differ from the training eval's:\n"
+             f"{_eval_block(text)}\nagainst\n{runs['train_tiles']['eval']}")
+    prob = np.load(work / "test" / "prob_reconstructed.npy")
+    if not np.array_equal(prob, np.load(work / "train_tiles" /
+                                        "prob_reconstructed.npy")):
+        fail("amazon test: its probability map differs from training's")
+    if prob.shape != (H, W) or not (np.isfinite(prob).all() and
+                                   0 <= prob.min() <= prob.max() <= 1):
+        fail(f"amazon test: probability map {prob.shape}, "
+             f"[{prob.min()}, {prob.max()}]")
+    test_s = float(re.search(r"test time (\S+)", text).group(1))
+    runs["test"] = {"seconds": secs, "launches": counts, "test_s": test_s,
+                    "scene_mpix_per_s": H * W / test_s / 1e6,
+                    "confusion_matrix": cm.tolist(),
+                    "accuracy": float(metrics[0])}
+    peak = torch.cuda.max_memory_allocated()
+    cli_s = time.time() - t_phase
+
+    parity = step_card_vs_cpu(threads=True, amazon=True)
+    emit({"phase": "amazon_64px_f32", **parity})
+    if parity["failed"]:
+        fail(f"64 px Amazon step, card vs CPU: {parity['failed']} past "
+             f"their limits: {parity['card_vs_cpu']} against {STEP_TOL}")
+    warm = amazon_warm_steps(mods)
+    emit({"phase": "amazon_warm_steps", **warm, "card": smi})
+    convseg, densemm, poolconv, distance, boundary = mods
+    labels = phase_labels(distance, boundary, AMAZON_PATCH)
+    k3_rows = phase_k3(densemm, torch.nn.functional, convseg,
+                       k3_calls(AMAZON_PATCH), AMAZON_BATCH, torch.float32,
+                       "k3_f32_128")
+    k4_rows = phase_k4(poolconv, torch.nn.functional, convseg,
+                       k4_calls(AMAZON_PATCH), AMAZON_BATCH, torch.float32,
+                       "k4_f32_128")
+    launches = {k: sum(r["launches"][k] for r in runs.values()
+                       if "launches" in r) for k in counters}
+    row = {"phase": "amazon",
+           "model": "ResUnetA d6 multitask, 14 bands, 3 classes, no colour "
+                    "head", "patch": AMAZON_PATCH, "batch": AMAZON_BATCH,
+           "dtype": "float32", "scene": list(AMAZON_SCENE),
+           "loss": "WCE on seg, bound, dist", "runs": runs,
+           "launches": launches, "max_memory_allocated_bytes": peak,
+           "warm_steps": warm, "cli_seconds": cli_s,
+           "seconds": time.time() - t_phase, "card": smi}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row, k3_rows, k4_rows, labels
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1513,8 +1892,8 @@ def main():
     sl_wide = phase_slice(models, sliding, convseg, smi, fwd_wide=True)
     k2_rows = phase_k2(convseg)
     k10_rows = phase_k10(convseg, F)
-    k3_rows = phase_k3(densemm, F)
-    k4_rows = phase_k4(poolconv, F)
+    k3_rows = phase_k3(densemm, F, convseg)
+    k4_rows = phase_k4(poolconv, F, convseg)
     labels = phase_labels(distance, boundary)
     labels.update(phase_labels_tiled(distance, boundary))
     mods = (convseg, densemm, poolconv, distance, boundary)
@@ -1529,6 +1908,10 @@ def main():
     paths["train_cli"] = {k: cli["run"]["launches"][k] +
                           cli["resume"]["launches"][k]
                           for k in cli["run"]["launches"]}
+    amazon, k3_f32, k4_f32, labels_128 = phase_amazon(mods, smi)
+    paths["amazon"] = amazon["launches"]
+    paths["amazon_steps"] = amazon["warm_steps"]["launches"]
+    labels.update(labels_128)
 
     def launched(key):
         """Launches of a kernel on each train path that ran it, and in
@@ -1541,8 +1924,8 @@ def main():
         bytes and operations bounds the sum."""
         out = {k: sum(r[k] * r[launches_key] for r in rows_)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        ops_ms = sum(r["gflop"] * 1e9 / PEAK_BF16_FLOPS * 1e3 *
-                     r[launches_key] for r in rows_)
+        ops_ms = sum(r["gflop"] * 1e9 / r.get("peak_flops", PEAK_BF16_FLOPS)
+                     * 1e3 * r[launches_key] for r in rows_)
         bytes_ms = sum(r["mbytes"] * 1e6 / PEAK_BYTES * 1e3 *
                        r[launches_key] for r in rows_)
         out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
@@ -1646,19 +2029,21 @@ def main():
                "segments' forward and backward (4 K2 launches each) at "
                "their shapes",
     }]
-    for key, krows, name, src, rep in (
-            ("K3", k3_rows, "K3 dense_mm (1x1 conv over concat parts: "
-             "ReLU, nearest upsample, stride fused; forward and backward)",
+    for key, krows, f32_rows, name, src, rep in (
+            ("K3", k3_rows, k3_f32, "K3 dense_mm (1x1 conv over concat "
+             "parts: ReLU, nearest upsample, stride fused; forward and "
+             "backward)",
              "resuneta_torch/kernels/csrc/densemm.cu",
              "resuneta_tpu/ops/pallas/densemm.py:321"),
-            ("K4", k4_rows, "K4 pool_conv (k x k max pool -> 1x1 conv; "
-             "forward and the tie-splitting backward)",
+            ("K4", k4_rows, k4_f32, "K4 pool_conv (k x k max pool -> 1x1 "
+             "conv; forward and the tie-splitting backward)",
              "resuneta_torch/kernels/csrc/poolconv.cu",
              "resuneta_tpu/ops/pallas/poolconv.py:237")):
-        for r in krows:       # both ways of a call, once a step
+        for r in krows + f32_rows:       # both ways of a call, once a step
             for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 r[k] = r[k + "_fwd"] + r[k + "_bwd"]
         tot = per(krows, "calls_per_step")
+        at128 = per(f32_rows, "calls_per_step")
         fwd_n, fwd_by = launched(key)
         bwd_n, bwd_by = launched(key + " bwd")
         bwd_launches = ("3 launches a call, 4 with an upsampled part"
@@ -1670,7 +2055,7 @@ def main():
             "launches_by_path": {p: fwd_by[p] + bwd_by[p] for p in fwd_by},
             "calls": {"forward": launched(key + " calls")[0],
                       "backward": launched(key + " bwd calls")[0]},
-            "max_abs_err": max(r["max_abs_err"] for r in krows),
+            "max_abs_err": max(r["max_abs_err"] for r in krows + f32_rows),
             "tolerance": krows[0]["tolerance"], "design": krows[0]["design"],
             "share_of_bound": tot["bound_ms"] / tot["ms"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -1681,7 +2066,13 @@ def main():
                            "materialised concat/upsample"),
             "per": f"one 16-patch 256 px dense-trunk train step: the "
                    f"{len(krows)} calls at their shapes, forward (1 launch "
-                   f"a call) and backward ({bwd_launches})"})
+                   f"a call) and backward ({bwd_launches})",
+            "f32_at_128": {
+                **at128, "share_of_bound": at128["bound_ms"] / at128["ms"],
+                "design": f32_rows[0]["design"],
+                "max_abs_err": max(r["max_abs_err"] for r in f32_rows),
+                "per": f"one 8-patch 128 px f32 Amazon step: the "
+                       f"{len(f32_rows)} calls at their shapes, both ways"}})
     for key, row_key, name, src, rep, unit in (
             ("K5/K7", "k5", "K5/K7 distance_transform_edt (JFA exact EDT: "
              "a whole plane in a thread block cluster's shared memory, one "
@@ -1724,6 +2115,12 @@ def main():
             ("ms_by_design",) if key == "K5/K7" else ("tile", "ms_by_tile"))
         for at, k in sizes:
             entry[at] = {f: labels[k][f] for f in fields}
+        if key != "K8":          # the Amazon step's 28 planes of 128^2
+            at128 = labels[row_key + "_128"]
+            entry["at_128"] = {f: at128[f] for f in (
+                "planes", "ms", "plain_ms", "bound_ms", "bound_by", "design",
+                "launches_per_call", "share_of_bound", "max_abs_err") + (
+                ("cluster_blocks",) if key == "K5/K7" else ())}
         entry.update({f: r[f] for f in ("design", "share_of_bound",
                                         "launches_per_call")})
         if key == "K5/K7":

@@ -22,7 +22,11 @@ Ported so far:
 - the training runtime above the step: packed datasets with a native row
   gather (`data.dataset`, `data.native_loader`), the epoch loop and
   checkpoints (`train.loop`, `train.checkpoint`), the UNet baseline
-  (`models.unet`) and the train CLI (`cli.train_isprs`).
+  (`models.unet`) and the train CLI (`cli.train_isprs`);
+- the ISPRS preprocess CLI (`cli.preprocess_isprs`) and the Amazon
+  deforestation workload: its dataset build (`data.amazon`,
+  `ops.morphology`), whole-scene eval (`infer.amazon`) and CLIs
+  (`cli.preprocess_amazon`, `cli.train_amazon`, `cli.test_amazon`).
 """
 
 __version__ = "0.1.0"

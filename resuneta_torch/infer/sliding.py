@@ -24,6 +24,22 @@ def seg_ids_u8(out):
     return seg.argmax(dim=-1).to(torch.uint8)
 
 
+def seg_ids_prob1(out):
+    """On-device post head of the Amazon whole-scene eval
+    (utils.py:505-546): uint8 class ids and the f16 class-1 probability
+    plane, which is all that eval reads (~8x less copied than the f32
+    probability volumes of every head)."""
+    seg = out["seg"] if isinstance(out, dict) else out
+    return {"ids": seg.argmax(dim=-1).to(torch.uint8),
+            "prob1": seg[..., 1].to(torch.float16)}
+
+
+def seg_prob1_f16(out):
+    """On-device post head: the f16 class-1 probability plane alone."""
+    seg = out["seg"] if isinstance(out, dict) else out
+    return seg[..., 1].to(torch.float16)
+
+
 def _to_host(out):
     if isinstance(out, dict):
         return {k: v.cpu().numpy() for k, v in out.items()}

@@ -3,12 +3,13 @@
 Device side, on tensors (metrics.py:18-63): Keras' compiled metrics of the
 train step, categorical accuracy and TruePositives/FalsePositives/
 TrueNegatives/FalseNegatives at threshold 0.5 over every class channel,
-and the MCC from those counts.
+the MCC from those counts, and a confusion matrix counted on the device.
 
 Host side (metrics.py:76-132): sklearn semantics without sklearn,
 utils.py:52-57 compute_metrics (accuracy, per-class F1, recall, precision,
 all x100) and sklearn.metrics.confusion_matrix, over the sorted union of the
-labels present (or an explicit list).
+labels present (or an explicit list); the Amazon alarm area and a masked
+threshold sweep (metrics.py:135-164).
 """
 
 import numpy as np
@@ -43,6 +44,14 @@ def compute_mcc(tp, tn, fp, fn):
                          dtype=torch.float32).double().sqrt().float()
     return torch.where(denom > 0, num / denom.clamp_min(1e-38),
                        torch.zeros_like(denom))
+
+
+def confusion_matrix_device(true_ids, pred_ids, num_classes):
+    """cm[t, p] counts of two id tensors, on their device: one bincount of
+    true * C + pred."""
+    idx = true_ids.long() * num_classes + pred_ids.long()
+    return torch.bincount(idx.reshape(-1), minlength=num_classes ** 2) \
+        .reshape(num_classes, num_classes)
 
 
 def confusion_matrix(true_labels, predicted_labels, labels=None):
@@ -95,3 +104,32 @@ def mean_iou(true_labels, predicted_labels, labels=None):
     ious = iou_per_class(confusion_matrix(true_labels, predicted_labels,
                                           labels))
     return float(ious.mean()), ious
+
+
+def alarm_area(cm_2class):
+    """The Amazon alarm area (amazon_py/main.py:157-158): (TP + FP) / total
+    of the binary deforestation confusion matrix."""
+    total = cm_2class.sum()
+    return (cm_2class[1, 1] + cm_2class[0, 1]) / max(total, 1)
+
+
+def threshold_sweep_curves(thresholds, prob_map, ref_reconstructed,
+                           mask_considered):
+    """(recall, precision, alarm area) curves in percent of a probability
+    map thresholded at each of `thresholds`, over the pixels where
+    mask_considered == 1. A plain diagnostic: the reference's sweep, with
+    area opening and the past-deforestation mask, is
+    infer/amazon.py matrics_AA_recall, which the Amazon CLI prints."""
+    sel = mask_considered == 1
+    ref = (np.asarray(ref_reconstructed)[sel] == 1).astype(np.int64)
+    prob = np.asarray(prob_map)[sel]
+    recalls, precisions, aas = [], [], []
+    for th in thresholds:
+        pred = (prob >= th).astype(np.int64)
+        tp = int(np.sum((pred == 1) & (ref == 1)))
+        fp = int(np.sum((pred == 1) & (ref == 0)))
+        fn = int(np.sum((pred == 0) & (ref == 1)))
+        recalls.append(100.0 * tp / max(tp + fn, 1))
+        precisions.append(100.0 * tp / max(tp + fp, 1))
+        aas.append(100.0 * (tp + fp) / max(ref.size, 1))
+    return np.array(recalls), np.array(precisions), np.array(aas)

@@ -11,6 +11,8 @@ cv2 and to the JAX package.
 
 import torch
 
+from .normalize import normalize_hsv
+
 _HSV_SHIFT = 12
 
 
@@ -62,12 +64,6 @@ def hsv_color_label(rgb_u8, norm_type: int = 1):
     including norm_type 2's divide by 88.5/126.5 (the reference's quirk,
     kept) and norm_type 3's per-sample standardisation."""
     hsv = rgb_to_hsv_cv2(rgb_u8)
-    if norm_type == 1:
-        scale = [1.0 / 179.0, 1.0 / 255.0, 1.0 / 255.0]
-    elif norm_type == 2:
-        scale = [1.0 / (89.5 - 1.0), 1.0 / (127.5 - 1.0), 1.0 / (127.5 - 1.0)]
-    elif norm_type == 3:
+    if norm_type == 3:
         return standardize_per_sample(hsv)
-    else:
-        raise ValueError(f"unknown norm_type {norm_type}")
-    return hsv * torch.tensor(scale, dtype=torch.float32, device=hsv.device)
+    return normalize_hsv(hsv, norm_type)

@@ -6,6 +6,12 @@ normalize_rgb, patch level (preprocess_save_patches_ISPRS.py:70-86):
      purpose; it is NOT img / 127.5 - 1
   3: per-image StandardScaler over all pixels, per channel (biased std)
 
+normalize_hsv, patch level (preprocess_save_patches_ISPRS.py:89-109), of
+cv2's 8-bit HSV:
+  1: * [1/179, 1/255, 1/255]
+  2: * [1/(89.5 - 1), 1/(127.5 - 1), 1/(127.5 - 1)] (the same quirk)
+  3: per-image StandardScaler
+
 normalization, whole image (utils.py:242-253), numbered differently:
   1: StandardScaler, 2: MinMax to [0, 1], 3: MinMax to [-1, 1].
 
@@ -51,6 +57,19 @@ def normalize_rgb(img, norm_type: int = 1):
     if norm_type == 3:
         return standard_scale(img)
     raise ValueError(f"unknown norm_type {norm_type}")
+
+
+def normalize_hsv(img, norm_type: int = 1):
+    img = _f32(img)
+    if norm_type == 1:
+        scale = [1.0 / 179.0, 1.0 / 255.0, 1.0 / 255.0]
+    elif norm_type == 2:
+        scale = [1.0 / (89.5 - 1.0), 1.0 / (127.5 - 1.0), 1.0 / (127.5 - 1.0)]
+    elif norm_type == 3:
+        return standard_scale(img)
+    else:
+        raise ValueError(f"unknown norm_type {norm_type}")
+    return img * torch.tensor(scale, dtype=torch.float32, device=img.device)
 
 
 def normalization(image, norm_type: int = 1):

@@ -2,7 +2,9 @@
 against their plain versions, the mode-"2" segment (K10), the wrappers
 raising on what their kernels do not take, the 64 px model and train step
 on the card against the CPU plain path (in the default routing and in each
-opt-in mode), and one 512 px train step's kernel launches. They skip
+opt-in mode), one 512 px train step's kernel launches, and the Amazon
+step (64 px, card against the CPU) with K3 and K4 in f32 at its 128 px
+shapes (`-k amazon`). They skip
 without a card. This file imports no JAX, so it runs where only PyTorch
 is installed, without the JAX-importing tests/conftest.py:
 
@@ -425,7 +427,7 @@ def _label_planes(size, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("size", [(64, 64), (256, 256), (48, 80)])
+@pytest.mark.parametrize("size", [(64, 64), (128, 128), (256, 256), (48, 80)])
 @pytest.mark.parametrize("op", ["k5", "k6"])
 def test_label_kernels_are_bit_identical(cuda, op, size):
     p = torch.from_numpy(_label_planes(size, sum(size))).to(cuda)
@@ -1055,3 +1057,75 @@ def test_dataset_batches_reach_the_card_as_the_cpu_bytes(cuda, tmp_path):
                                rtol=2 ** -23, atol=0)
     for k in ("dist", "color"):
         torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------------ Amazon
+
+@pytest.mark.gpu
+def test_amazon_train_step_on_card_matches_cpu_plain_path(cuda):
+    """The Amazon CLI's step at 64 px, bs 2, f32 (14 bands, 3 classes, no
+    colour head, the WCE on seg, bound and dist, make_label_head_pipeline
+    on float patches), the dense trunk on both sides, TF32 off, through
+    chip_smoke.step_card_vs_cpu(amazon=True): the launches of the ISPRS
+    64 px step (f32: K3's backward 3 launches a call) and the card against
+    the CPU plain path within chip_smoke.STEP_TOL."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    got = chip_smoke.step_card_vs_cpu(threads=False, amazon=True)
+    assert got["launches"] == {"K1": 44, "K2": 4 * 44, "K3": 12,
+                               "K3_bwd": 3 * 12, "K4": 1, "K4_bwd": 2,
+                               "K5/K7": 1, "K6": 2, "K9": 0, "K10": 0}
+    assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(12))
+def test_amazon_k3_f32_128px_shapes_match_plain(cuda, i):
+    """Each of the 128 px Amazon step's 12 K3 calls (chip_smoke.k3_calls,
+    batch 8, f32: the CUDA-core tiles, "pr3") against the plain version: y and
+    every dx within 1e-5 of the largest magnitude, dW and dbias within
+    1e-4 (f32 sums over up to 1.3 10^5 pixels in another order), a strided
+    part's dx zero where the conv does not read; the backward 3 launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    _, parts, cout = chip_smoke.k3_calls(128)[i]
+    parts = [(c, h, h, a, k, s) for c, h, a, k, s in parts]
+    xs, w, bias, spec = _k3_inputs(parts, cout, 8, torch.float32, i, cuda)
+    assert densemm.k3_design(xs[0].dtype) == "pr3"
+    H = parts[0][1] // parts[0][5] * parts[0][4]
+    g = torch.randn((8, H, H, cout), device=cuda)
+    launches = densemm.BWD_LAUNCHES
+    y, (dxs, dw, db) = _k3_run(xs, w, bias, spec, g)
+    assert densemm.BWD_LAUNCHES == launches + 3
+    _close(y, densemm.dense_mm_reference(xs, w, bias, **spec), 0)
+    wdxs, wdw, wdb = densemm.dense_mm_bwd_reference(xs, g, w, **spec)
+    for dx, wdx, p in zip(dxs, wdxs, parts):
+        _close(dx, wdx, 0)
+        if p[5] > 1:
+            assert not dx[:, 1::2].any() and not dx[:, :, 1::2].any()
+    for got, want in ((dw, wdw), (db, wdb)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4])
+def test_amazon_k4_f32_128px_matches_plain(cuda, k):
+    """The 128 px Amazon step's PSP levels (8 x 128^2 x 32 -> cout 8, f32)
+    with planted ties: y, dx, dW and dbias within 1e-5 of the largest
+    magnitude, and a repeated backward bit-identical."""
+    x = _tied(8, 128, 128, 32, k, cuda, torch.float32)
+    w = torch.randn((32, 8), device=cuda) / 32 ** 0.5
+    bias = torch.randn(8, device=cuda) * 0.1
+    y = poolconv.pool_conv_fwd(x, w, bias, k=k)
+    _close(y, poolconv.pool_conv_reference(x, w, bias, k=k), 0)
+    g = torch.randn(y.shape, device=cuda)
+    got = poolconv.pool_conv_bwd(x, g, w, k=k)
+    again = poolconv.pool_conv_bwd(x, g, w, k=k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = poolconv.pool_conv_bwd_reference(x, g, w, k=k)
+    for gt, wt in zip(got, want):
+        _close(gt, wt, 0)
