@@ -139,8 +139,24 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             planes of 128^2 (k5_128: the EDT's cluster of 2 blocks,
             k6_128). Its row: each CLI epoch's patches/s, the scene's
             Mpix/s, the test time, peak memory and the card.
-13. kernels line (K1-K10; the launches count the train_cli and amazon
-            runs too; K3's and K4's f32_at_128 the 128 px f32 calls, K5's
+13. dist   - data-parallel training (resuneta_torch.parallel), phase_dist:
+            two ranks of one process each share this card over gloo
+            (NCCL takes one card a rank), each with 8 rows of a global
+            batch of 16, and take 3 SGD steps of the full-width multitask
+            d6 at 256 px, bf16, with K1-K6 live on each; held against the
+            same 3 steps in this process on the 16 rows (dist_compare: the
+            rows, the SGD update, the BN running buffers, at STEP_TOL's
+            limits), the ranks' parameters bit for bit, each rank's
+            launches expected_counts(3). Then one epoch of train_model
+            over the two ranks on train_cli's packed set: each rank's
+            launches, and rank 0 alone printing and writing its
+            checkpoint. With two cards or more, the same steps over NCCL
+            one card a rank, and cli.train_isprs --gpu_parallel True on
+            every card; with one, the row says so. Its row: the readings,
+            the step times of rank 0 and of this process (a smoke
+            reading: two ranks share one card), the launches by rank.
+14. kernels line (K1-K10; the launches count the train_cli, amazon and
+            dist runs too; K3's and K4's f32_at_128 the 128 px f32 calls, K5's
             and K6's at_128 the 128^2 planes), then the last line
             {"ok": true, "device": {...}}.
 
@@ -1266,7 +1282,8 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
 # K7, the port all to jfa.cu) and one Canny call of 2 launches, pass 1 and
 # pass 2 (boundary.PASSES; K6 up to 384^2, K8 above) over all the batch's
 # class planes
-LABEL_LAUNCHES = {128: {"K5/K7": 1, "K6": 2, "K8": 0},
+LABEL_LAUNCHES = {64: {"K5/K7": 1, "K6": 2, "K8": 0},
+                  128: {"K5/K7": 1, "K6": 2, "K8": 0},
                   256: {"K5/K7": 1, "K6": 2, "K8": 0},
                   512: {"K5/K7": 8, "K6": 0, "K8": 2},
                   1024: {"K5/K7": 9, "K6": 0, "K8": 2}}
@@ -1872,6 +1889,329 @@ def phase_amazon(mods, smi):
     return row, k3_rows, k4_rows, labels
 
 
+# the dist phase: data-parallel training on the card (resuneta_torch.
+# parallel). DIST_RANKS processes share the one card over gloo (NCCL
+# refuses two ranks on one card), each with TRAIN_BATCH / DIST_RANKS rows of
+# the global batch of TRAIN_BATCH, and take DIST_STEPS SGD steps of the
+# full-width multitask d6 at 256 px in bf16 (SGD: its update is linear in
+# the gradient, so the parameters after the steps bound the gradients'
+# mismatch); held against the same steps in this process on the whole
+# batch at STEP_TOL, the ranks' parameters equal bit for bit. Then a
+# one-epoch train_model over the ranks on train_cli's packed set, rank 0
+# alone writing. With two cards or more, the same over NCCL, one card a
+# rank, and the CLI's --gpu_parallel True on every card.
+DIST_RANKS, DIST_STEPS, DIST_LR = 2, 3, 1e-3
+DIST_DIR = WORK_DIR / "dist"
+
+
+def dist_steps(group, patch=PATCH, batch=TRAIN_BATCH, steps=DIST_STEPS,
+               dtype=torch.bfloat16):
+    """`steps` SGD train steps of the ISPRS multitask d6 at full width from
+    seeded weights, on this rank's rows of a seeded global batch of
+    `batch` (all of it without a group), every kernel count set to 0 just
+    before and read just after. Returns the launches, the metric rows, the
+    step times and the state_dict before and after, on the CPU."""
+    from resuneta_torch import losses, models
+    from resuneta_torch.data import make_device_pipeline
+    from resuneta_torch.ops import (boundary, convseg, densemm, distance,
+                                    poolconv)
+    from resuneta_torch.parallel import shard_batch
+    from resuneta_torch.train import create_train_state, make_train_step
+
+    dev = group.device if group is not None else torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    raw = shard_batch({
+        "image_u8": rng.integers(0, 256, (batch, patch, patch, 3),
+                                 dtype=np.uint8),
+        "label_ids": voronoi_ids(batch, patch, NUM_CLASSES, rng),
+        "aug": rng.integers(0, 5, batch)}, group)
+    model = models.ResUnetA(NUM_CLASSES, img_size=patch, multitasking=True,
+                            dtype=dtype, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    state = create_train_state(model, "sgd", DIST_LR)
+    step = make_train_step(
+        losses.make_losses("tanimoto"), {h: 1.0 for h in HEADS}, True,
+        preprocess=make_device_pipeline(NUM_CLASSES, 1, device=dev),
+        device=dev, group=group)
+    counters = kernel_counters((convseg, densemm, poolconv, distance,
+                                boundary))
+    for m, k in counters.values():
+        setattr(m, k, 0)
+    rows, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, row = step(state, raw)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        rows.append(row.cpu().numpy())
+    return {"counts": {name: getattr(m, k)
+                       for name, (m, k) in counters.items()},
+            "rows": np.stack(rows), "times": times, "before": before,
+            "after": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def dist_train_model(group, data, work, patch=PATCH):
+    """One epoch of train_model over the group on the packed set of
+    `patch` px patches at `data` (the CLI's split, batch CLI_BATCH, the
+    full-width d6, bf16, Adam),
+    into work/train_model_rank<r>, every kernel count set to 0 just before
+    and read just after; stdout captured."""
+    from resuneta_torch import losses
+    from resuneta_torch.data import PackedDataset, make_device_pipeline
+    from resuneta_torch.data.split import train_test_split
+    from resuneta_torch.models import ResUnetA
+    from resuneta_torch.ops import (boundary, convseg, densemm, distance,
+                                    poolconv)
+    from resuneta_torch.parallel import replicate_state
+    from resuneta_torch.train import (TrainConfig, create_train_state,
+                                      make_eval_step, make_train_step,
+                                      train_model)
+
+    dev = group.device
+    full = PackedDataset(str(data))
+    tr, va = train_test_split(np.arange(len(full)), test_size=0.2,
+                              random_state=42)
+    model = ResUnetA(NUM_CLASSES, img_size=patch, multitasking=True,
+                     dtype=torch.bfloat16, device=dev,
+                     generator=torch.Generator().manual_seed(SEED))
+    state = replicate_state(create_train_state(model, "adam", 1e-4), group)
+    pipe = make_device_pipeline(NUM_CLASSES, 1, device=dev)
+    args = (losses.make_losses("tanimoto"), {h: 1.0 for h in HEADS}, True)
+    ts = make_train_step(*args, preprocess=pipe, device=dev, group=group)
+    es = make_eval_step(*args, preprocess=pipe, device=dev, group=group)
+    config = TrainConfig(results_path=str(work / f"train_model_rank"
+                                               f"{group.rank}"),
+                         batch_size=CLI_BATCH, epochs=1, multitasking=True,
+                         seed=SEED)
+    counters = kernel_counters((convseg, densemm, poolconv, distance,
+                                boundary))
+    for m, k in counters.values():
+        setattr(m, k, 0)
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        state, history = train_model(config, state, ts, es, full.subset(tr),
+                                     full.subset(va), group=group)
+    torch.cuda.synchronize()
+    return {"history": history, "seconds": time.time() - t0,
+            "counts": {name: getattr(m, k)
+                       for name, (m, k) in counters.items()},
+            "train_steps": state.step, "printed": bool(out.getvalue()),
+            "results_path": config.results_path}
+
+
+def dist_rank(rank, world, backend, init_method, work, patch, batch, steps,
+              dtype, data):
+    """One rank of dist_compare: gloo on the one card (ranks share it), or
+    NCCL on the card of its rank. Saves what it ran to work/rank<r>.pt."""
+    from resuneta_torch.parallel import destroy_group, init_group
+
+    group = init_group(backend, "cuda:0" if backend == "gloo" else
+                       f"cuda:{rank}", rank=rank, world_size=world,
+                       init_method=init_method,
+                       gloo_on_cuda=backend == "gloo")
+    try:
+        out = dist_steps(group, patch, batch, steps, dtype)
+        out["backend"], out["device"] = group.backend, str(group.device)
+        if data is not None:
+            out["train_model"] = dist_train_model(group, data, work, patch)
+        torch.save(out, work / f"rank{rank}.pt")
+    finally:
+        destroy_group(group)
+
+
+def dist_compare(backend, work, patch=PATCH, batch=TRAIN_BATCH,
+                 steps=DIST_STEPS, dtype=torch.bfloat16, data=None,
+                 ranks=DIST_RANKS):
+    """dist_steps over `ranks` spawned ranks on `backend` against
+    dist_steps in this process on the whole batch, from the same weights
+    and batch: the rows (losses within STEP_TOL's loss_rel, the accuracy
+    within 2e-3, the counts within 2e-3 of the elements, as
+    tests/test_torch_train.py holds them), the SGD update over every
+    parameter (grads_rel_l2) and each head leaf (heads_rel_l2), each BN
+    running variance, and the running means all at once
+    (bn_running_rel_l2); the ranks' parameters and buffers bit for bit,
+    their launches against expected_counts. Returns the readings and the
+    names of those past their limits; the ranks' results under
+    "ranks_out".
+
+    The running means are held all at once, not one by one: a BN fed by
+    a BN's bf16 output has a batch mean that is only the rounding of that
+    output's bf16 offset b, which an f32 sum in another order moves by a
+    bf16 ulp, so its running mean differs by up to 100% between two right
+    programs (0.75 relative L2 on an H100 at 256 px, bf16), while it
+    weighs nothing in the means' norm."""
+    from resuneta_torch.parallel import launch
+
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.time()
+    launch.spawn(dist_rank, ranks, (ranks, backend, launch.rendezvous(
+        str(work)), work, patch, batch, steps, dtype, data), timeout_s=600)
+    spawn_s = time.time() - t0
+    got = [torch.load(work / f"rank{r}.pt", weights_only=False)
+           for r in range(ranks)]
+    one = dist_steps(None, patch, batch, steps, dtype)
+    torch.cuda.empty_cache()
+    r0 = got[0]
+    failed = []
+    if any(not torch.equal(v, g["after"][k]) for g in got[1:]
+           for k, v in r0["after"].items()) or \
+            any(not np.array_equal(g["rows"], r0["rows"]) for g in got[1:]):
+        failed.append("ranks_bit_for_bit")
+    want = expected_counts(steps, True, patch, f32=dtype == torch.float32)
+    if any(g["counts"] != want for g in got) or one["counts"] != want:
+        failed.append("launches")
+    rg, rw = r0["rows"].astype(np.float64), one["rows"].astype(np.float64)
+    n = batch * patch * patch * NUM_CLASSES
+    loss_rel = float(np.max(np.abs(rg[:, :5] - rw[:, :5]) /
+                            np.abs(rw[:, :5])))
+    acc_abs = float(np.max(np.abs(rg[:, 5] - rw[:, 5])))
+    counts_abs = float(np.max(np.abs(rg[:, 6:] - rw[:, 6:])))
+    leaves = [k for k in r0["before"] if not k.endswith((".mean", ".var"))]
+    means = [k for k in r0["before"] if k.endswith(".mean")]
+    bn_rel = {k: rel_l2(r0["after"][k].double(), one["after"][k].double())
+              for k in r0["before"] if k.endswith((".mean", ".var"))}
+    du = {k: (r0["after"][k] - r0["before"][k]).double() for k in leaves}
+    dw = {k: (one["after"][k] - one["before"][k]).double() for k in leaves}
+    readings = {
+        "loss_rel": loss_rel,
+        "accuracy_abs": acc_abs,
+        "counts_abs_of_elements": counts_abs / n,
+        "update_rel_l2": rel_l2(torch.cat([du[k].ravel() for k in leaves]),
+                                torch.cat([dw[k].ravel() for k in leaves]),
+                                atol=0),
+        "heads_update_rel_l2": max(
+            rel_l2(du[k], dw[k], atol=1e-6 * DIST_LR) for k in leaves
+            if k.split(".")[0] in HEAD_LEAVES),
+        "bn_running_var_rel_l2": max(v for k, v in bn_rel.items()
+                                     if k.endswith(".var")),
+        "bn_running_means_rel_l2": rel_l2(
+            torch.cat([r0["after"][k].double() for k in means]),
+            torch.cat([one["after"][k].double() for k in means]))}
+    limits = {"loss_rel": STEP_TOL["loss_rel"], "accuracy_abs": 2e-3,
+              "counts_abs_of_elements": 2e-3,
+              "update_rel_l2": STEP_TOL["grads_rel_l2"],
+              "heads_update_rel_l2": STEP_TOL["heads_rel_l2"],
+              "bn_running_var_rel_l2": STEP_TOL["bn_running_rel_l2"],
+              "bn_running_means_rel_l2": STEP_TOL["bn_running_rel_l2"]}
+    failed += [k for k, v in readings.items() if not v < limits[k]]
+    worst = sorted(bn_rel, key=bn_rel.get)[-3:]
+    return {"backend": backend, "ranks": ranks, "patch": patch,
+            "global_batch": batch, "rows_a_rank": batch // ranks,
+            "dtype": str(dtype).replace("torch.", ""), "steps": steps,
+            "readings": readings, "limits": limits, "failed": failed,
+            "bn_worst_buffers": {k: {"rel_l2": bn_rel[k], "norm": float(
+                one["after"][k].norm())} for k in worst},
+            "launches_a_rank": r0["counts"], "expected_launches": want,
+            "step_s_rank0": r0["times"], "median_warm_step_s_rank0":
+                median(r0["times"]),
+            "step_s_one_process": one["times"],
+            "median_warm_step_s_one_process": median(one["times"]),
+            "launches_by_rank": [g["counts"] for g in got],
+            "spawn_and_run_s": spawn_s, "ranks_out": got}
+
+
+def phase_dist(smi):
+    """dist_compare over gloo on this card at the train phase's shapes,
+    with a one-epoch train_model over the ranks on train_cli's packed set;
+    with two cards or more, the same over NCCL and the CLI's
+    --gpu_parallel True. Fails unless the readings are within their
+    limits, the launches are each rank's expected_counts (and the
+    train_model's expected_counts plus expected_eval_counts), and rank 0
+    alone printed and wrote its checkpoint."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    data = WORK_DIR / "train_cli" / "data"
+    res = dist_compare("gloo", DIST_DIR / "gloo", data=data)
+    tms = [g["train_model"] for g in res.pop("ranks_out")]
+    if res["failed"]:
+        fail(f"dist (gloo): {res['failed']} failed: {res['readings']} "
+             f"against {res['limits']}")
+    from resuneta_torch.data import PackedDataset
+    from resuneta_torch.data.split import train_test_split
+    from resuneta_torch.train.loop import epoch_batches
+    n = len(PackedDataset(str(data)))
+    n_val = len(train_test_split(np.arange(n), test_size=0.2,
+                                 random_state=42)[1])
+    steps = epoch_batches(n - n_val, CLI_BATCH, DIST_RANKS)[0]
+    evals = epoch_batches(n_val, CLI_BATCH, DIST_RANKS)[0]
+    want = expected_counts(steps, True)
+    for k, v in expected_eval_counts(evals).items():
+        want[k] += v
+    for r, tm in enumerate(tms):
+        vals = [v for h in tm["history"] for sp in ("train", "val")
+                for v in h[sp].values()]
+        if tm["counts"] != want or tm["train_steps"] != steps or \
+                not np.isfinite(vals).all():
+            fail(f"dist train_model rank {r}: counts {tm['counts']} "
+                 f"(expected {want}), {tm['train_steps']} steps "
+                 f"(expected {steps}), history {tm['history']}")
+    ckpt = Path(tms[0]["results_path"]) / "best_model.ckpt" / "checkpoint.pt"
+    if not ckpt.exists() or Path(tms[1]["results_path"]).exists() or \
+            not tms[0]["printed"] or tms[1]["printed"]:
+        fail("dist train_model: rank 0 alone must print and write its "
+             f"checkpoint ({ckpt}); rank 1 printed {tms[1]['printed']}, "
+             f"wrote {Path(tms[1]['results_path']).exists()}")
+    row = {"phase": "dist", **res, "card": smi,
+           "train_model": {
+               "epochs": 1, "global_batch": CLI_BATCH,
+               "train_steps": steps, "eval_steps": evals,
+               "seconds_by_rank": [tm["seconds"] for tm in tms],
+               "patches_per_s": tms[0]["history"][0]["patches_per_sec"],
+               "launches_a_rank": tms[0]["counts"],
+               "checkpoint_by_rank_0_alone": True},
+           "note": "two ranks share one card: a smoke reading, not a "
+                   "scaling figure"}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = dist_compare("nccl", DIST_DIR / "nccl")
+        nccl.pop("ranks_out")
+        if nccl["failed"]:
+            fail(f"dist (nccl): {nccl['failed']} failed: "
+                 f"{nccl['readings']} against {nccl['limits']}")
+        row["nccl"] = nccl
+        row["cli_gpu_parallel"] = dist_cli(data, n_cards)
+    else:
+        row["nccl"] = {"ran": False, "why": f"{n_cards} card visible: NCCL "
+                       "takes one card a rank"}
+    row["seconds"] = time.time() - t0
+    emit(row)
+    return row, tms
+
+
+def dist_cli(data, n_cards):
+    """resuneta_torch.cli.train_isprs.main with --gpu_parallel True: one
+    rank a card (NCCL), 1 epoch, batch CLI_BATCH * n_cards; rank 0's
+    history finite and its checkpoint written."""
+    from resuneta_torch.cli import train_isprs
+
+    rp = DIST_DIR / "cli"
+    shutil.rmtree(rp, ignore_errors=True)
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        state, history = train_isprs.main([
+            "--resunet_a", "True", "--multitasking", "True", "--loss",
+            "tanimoto", "--dtype", "bfloat16", "-bs",
+            str(CLI_BATCH * n_cards), "-ps", str(PATCH), "-dp", str(data),
+            "--epochs", "1", "--gpu_parallel", "True", "-rp", str(rp)])
+    vals = [v for h in history for sp in ("train", "val")
+            for v in h[sp].values()]
+    ckpt = rp / "best_model.ckpt" / "checkpoint.pt"
+    if state is not None or len(history) != 1 or \
+            not np.isfinite(vals).all() or not ckpt.exists():
+        fail(f"--gpu_parallel True on {n_cards} cards: state {state}, "
+             f"history {history}, checkpoint {ckpt.exists()}")
+    return {"ran": True, "cards": n_cards, "seconds": time.time() - t0,
+            "patches_per_s": history[0]["patches_per_sec"],
+            "val_loss": history[0]["val"]["loss"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1912,6 +2252,10 @@ def main():
     paths["amazon"] = amazon["launches"]
     paths["amazon_steps"] = amazon["warm_steps"]["launches"]
     labels.update(labels_128)
+    dist, dist_tms = phase_dist(smi)
+    for r, tm in enumerate(dist_tms):     # each rank's own counts
+        paths[f"dist_rank{r}"] = {k: v + tm["counts"][k] for k, v in
+                                  dist["launches_by_rank"][r].items()}
 
     def launched(key):
         """Launches of a kernel on each train path that ran it, and in

@@ -26,7 +26,11 @@ Ported so far:
 - the ISPRS preprocess CLI (`cli.preprocess_isprs`) and the Amazon
   deforestation workload: its dataset build (`data.amazon`,
   `ops.morphology`), whole-scene eval (`infer.amazon`) and CLIs
-  (`cli.preprocess_amazon`, `cli.train_amazon`, `cli.test_amazon`).
+  (`cli.preprocess_amazon`, `cli.train_amazon`, `cli.test_amazon`);
+- data-parallel training and inference, one process a card over
+  torch.distributed (`parallel`: sync-BN, the Tanimoto volumes, the
+  gradient mean and the metric counts reduced over the ranks; the train
+  CLIs' `--gpu_parallel` and torchrun; the sharded patch grid).
 """
 
 __version__ = "0.1.0"

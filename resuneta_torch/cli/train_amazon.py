@@ -24,9 +24,16 @@ color_head=False); the multitask heads seg, bound and dist all take the WCE
 loss with weight 1.0 and their labels come from the one-hot reference on
 the device (make_label_head_pipeline). The step runs in f32, as the JAX
 CLI's. --seed seeds the port's own generators (the model's init and the
-shuffle). --gpu_parallel is a no-op with one visible card; with more it
-raises, since distribution is not ported. Entry points run on the card
-unless --device names another, and raise without one.
+shuffle). Entry points run on the card unless --device names another,
+and raise without one.
+
+Data parallelism as in cli/train_isprs.py (parallel/launch.py
+main_data_parallel): --gpu_parallel True with N > 1 visible cards trains
+one process a card (NCCL; -bs the global batch), a no-op with one card;
+under torchrun each process joins that group (gloo with --device cpu).
+Every rank builds the same dataset; the whole-scene eval shards the patch
+grid over the ranks, and rank 0 alone prints, saves and writes the
+probability map.
 """
 
 import argparse
@@ -35,7 +42,7 @@ import time
 
 import numpy as np
 
-from ..utils.cli import str2bool
+from ..utils.cli import print_on_coordinator, str2bool
 
 
 def build_parser():
@@ -193,10 +200,17 @@ def report(ref_final, pre_final, time_ts, area_label):
 
 
 def main(argv=None):
+    """Returns (state, history); (None, rank 0's history) where it spawned
+    one rank a card."""
     args = build_parser().parse_args(argv)
-    stride = args.stride or args.patch_size // 8
+    from ..parallel.launch import main_data_parallel
 
-    import torch
+    return main_data_parallel(run, args, args.device, args.gpu_parallel)
+
+
+def run(args, group=None):
+    """The CLI's work in this process: alone, or as one rank of `group`."""
+    stride = args.stride or args.patch_size // 8
 
     from ..data import ArrayDataset, make_label_head_pipeline
     from ..data.amazon import bal_aug_patches, patch_tiles
@@ -204,16 +218,16 @@ def main(argv=None):
     from ..infer.amazon import prediction
     from ..infer.sliding import make_apply_fn
     from ..losses import weighted_categorical_crossentropy
+    from ..parallel import multihost, replicate_state
     from ..train import (TrainConfig, create_train_state, make_eval_step,
                          make_train_step, train_model)
 
-    if args.gpu_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--gpu_parallel with {torch.cuda.device_count()} visible cards: "
-            "data-parallel training is not ported yet (ROADMAP, Queue 1 "
-            "item 9, distribution); make one card visible "
-            "(CUDA_VISIBLE_DEVICES) or pass --gpu_parallel False")
-    device = resolve_device(args.device)
+    device = group.device if group is not None else resolve_device(
+        args.device)
+    print = print_on_coordinator(group)   # rank 0 alone prints
+    if group is not None:
+        print(f"Number of devices: {group.size} (data-parallel, "
+              f"{group.backend}, one process a device)")
 
     def to_ds(p, r):
         onehot = np.eye(args.num_classes, dtype=np.float32)[np.asarray(r, np.int64)]
@@ -274,7 +288,8 @@ def main(argv=None):
 
     multitasking = bool(args.multitasking and args.resunet_a)
     model = build_model(args, channels, device)
-    state = create_train_state(model, "adam", args.learning_rate)
+    state = replicate_state(create_train_state(model, "adam",
+                                               args.learning_rate), group)
 
     wce = weighted_categorical_crossentropy(args.class_weights)
     if multitasking:
@@ -288,9 +303,11 @@ def main(argv=None):
         loss_weights = {}
         preprocess = None
     train_step = make_train_step(loss_fns, loss_weights, multitasking,
-                                 preprocess=preprocess, device=device)
+                                 preprocess=preprocess, device=device,
+                                 group=group)
     eval_step = make_eval_step(loss_fns, loss_weights, multitasking,
-                               preprocess=preprocess, device=device)
+                               preprocess=preprocess, device=device,
+                               group=group)
 
     config = TrainConfig(results_path=args.results_path,
                          batch_size=args.batch_size, epochs=args.epochs,
@@ -298,7 +315,7 @@ def main(argv=None):
                          seed=args.seed)
     t0 = time.time()
     state, history = train_model(config, state, train_step, eval_step,
-                                 train_ds, val_ds)
+                                 train_ds, val_ds, group=group)
     print("training time", time.time() - t0)
 
     if args.skip_eval:
@@ -308,9 +325,11 @@ def main(argv=None):
     mask_ts = tiles_mask(mask_tiles, args.test_tiles)
     (ref_final, pre_final, prob_rec, _, _, _, time_ts) = prediction(
         make_apply_fn(state.model, device), image_array, image_ref,
-        final_mask, mask_ts, args.patch_size, args.area)
-    report(ref_final, pre_final, time_ts, "Area to be analyzed")
-    np.save(os.path.join(args.results_path, "prob_reconstructed.npy"), prob_rec)
+        final_mask, mask_ts, args.patch_size, args.area, group=group)
+    if multihost.is_coordinator(group):
+        report(ref_final, pre_final, time_ts, "Area to be analyzed")
+        np.save(os.path.join(args.results_path, "prob_reconstructed.npy"),
+                prob_rec)
     return state, history
 
 

@@ -13,11 +13,19 @@ A packed dataset (data/dataset.py, write_packed_dataset) trains through the
 device pipeline; the reference's file-per-patch tree through
 LegacyPatchDataset. The split is the JAX CLI's (data/split.py). --seed
 seeds the port's own generators: the model's init and the shuffle (the
-port's init is not JAX's). --gpu_parallel is a no-op with one visible card,
-as in the JAX CLI; with more it raises, since distribution is not ported.
-The best checkpoint goes to <results>/best_model.ckpt (train/checkpoint.py),
-TensorBoard logs to <results>/logs/{train,val} where tensorboardX is
-installed; -cp resumes from a checkpoint with -lr as the new learning rate.
+port's init is not JAX's). The best checkpoint goes to
+<results>/best_model.ckpt (train/checkpoint.py), TensorBoard logs to
+<results>/logs/{train,val} where tensorboardX is installed; -cp resumes
+from a checkpoint with -lr as the new learning rate.
+
+Data parallelism (parallel/launch.py main_data_parallel): --gpu_parallel
+True with N > 1 visible cards trains on all of them, one process a card
+(NCCL; -bs stays the global batch, each card takes -bs/N rows of it), as
+the reference's MirroredStrategy does; with one card it is a no-op. Under
+torchrun (WORLD_SIZE set) each process joins that group, on the card of
+its LOCAL_RANK, or with --device cpu on the CPU over gloo:
+
+    torchrun --nproc_per_node 2 -m resuneta_torch.cli.train_isprs ...
 """
 
 import argparse
@@ -26,7 +34,7 @@ import time
 
 import numpy as np
 
-from ..utils.cli import str2bool
+from ..utils.cli import print_on_coordinator, str2bool
 
 
 def build_parser():
@@ -36,7 +44,8 @@ def build_parser():
     parser.add_argument("--multitasking", help="choose resunet-a multitasking or not",
                         type=str2bool, default=False)
     parser.add_argument("--gpu_parallel",
-                        help="choose 1 to train on multiple devices",
+                        help="choose 1 to train on multiple devices "
+                             "(one process a card)",
                         type=str2bool, default=False)
     parser.add_argument("-rp", "--results_path",
                         help="Path where to save logs and model checkpoint. Logs and "
@@ -79,8 +88,16 @@ def build_parser():
 
 
 def main(argv=None):
+    """Returns (state, history); (None, rank 0's history) where it spawned
+    one rank a card."""
     args = build_parser().parse_args(argv)
+    from ..parallel.launch import main_data_parallel
 
+    return main_data_parallel(run, args, args.device, args.gpu_parallel)
+
+
+def run(args, group=None):
+    """The CLI's work in this process: alone, or as one rank of `group`."""
     import torch
 
     from ..data import LegacyPatchDataset, PackedDataset, make_device_pipeline
@@ -89,21 +106,21 @@ def main(argv=None):
     from ..device import resolve_device
     from ..losses import make_losses
     from ..models import ResUnetA, UNet
+    from ..parallel import multihost, replicate_state
     from ..train import (TrainConfig, checkpoint, create_train_state,
                          make_eval_step, make_train_step, train_model)
 
-    if args.gpu_parallel and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--gpu_parallel with {torch.cuda.device_count()} visible cards: "
-            "data-parallel training is not ported yet (ROADMAP, Queue 1 "
-            "item 9, distribution); make one card visible "
-            "(CUDA_VISIBLE_DEVICES) or pass --gpu_parallel False")
-    device = resolve_device(args.device)
+    device = group.device if group is not None else resolve_device(
+        args.device)
+    print = print_on_coordinator(group)   # rank 0 alone prints
 
     print("=" * 30 + "INITIALIZING" + "=" * 30)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "CPU"
     print(f"DEVICES: [{device} ({name})]")
+    if group is not None:
+        print(f"Number of devices: {group.size} (data-parallel, "
+              f"{group.backend}, one process a device)")
 
     # ---------- dataset ----------
     root = args.dataset_path
@@ -163,16 +180,20 @@ def main(argv=None):
         print(f"[INFO] loading {args.checkpoint_path}...")
         print(f"[INFO] old learning rate: {float(state.learning_rate)}")
         state, meta = checkpoint.restore(
-            args.checkpoint_path, state, learning_rate_override=args.learning_rate
-        )
+            args.checkpoint_path, state,
+            learning_rate_override=args.learning_rate, group=group)
         print(f"[INFO] new learning rate: {float(state.learning_rate)}")
+    state = replicate_state(state, group)
 
     train_step = make_train_step(loss_fns, loss_weights, args.multitasking,
-                                 preprocess=preprocess, device=device)
+                                 preprocess=preprocess, device=device,
+                                 group=group)
     eval_step = make_eval_step(loss_fns, loss_weights, args.multitasking,
-                               preprocess=preprocess, device=device)
+                               preprocess=preprocess, device=device,
+                               group=group)
 
-    os.makedirs(args.results_path, exist_ok=True)
+    if multihost.is_coordinator(group):
+        os.makedirs(args.results_path, exist_ok=True)
     config = TrainConfig(
         results_path=args.results_path,
         batch_size=args.batch_size,
@@ -185,7 +206,7 @@ def main(argv=None):
 
     start = time.time()
     state, history = train_model(config, state, train_step, eval_step,
-                                 train_ds, val_ds)
+                                 train_ds, val_ds, group=group)
     print(f"\nTraining took: {(time.time() - start) / 3600} \n")
     return state, history
 

@@ -17,3 +17,17 @@ def resolve_device(device=None) -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "the plain PyTorch path")
     return dev
+
+
+def check_current_device(t):
+    """Raise unless the CUDA tensor `t` lies on the current device. The
+    kernels query and set attributes (SM count, shared memory) of the
+    current device, and a data-parallel rank works on its own card, made
+    current by parallel.init_group: a tensor on another card is a fault to
+    report, not a launch to make."""
+    cur = torch.cuda.current_device()
+    if t.device.index != cur:
+        raise ValueError(
+            f"the kernel's tensors are on {t.device} but the current device "
+            f"is cuda:{cur}: call torch.cuda.set_device({t.device.index}) "
+            "(parallel.init_group does) before launching")

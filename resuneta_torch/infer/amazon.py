@@ -8,8 +8,10 @@ utils2.py:312-356 and the TP/FP/FN colour map (utils.py:549-563).
 `apply_fn` is an inference forward such as infer.sliding.make_apply_fn's:
 NHWC patches in, the model's outputs as tensors on its device out. The
 forward and the reduction to ids and the class-1 plane run on that device;
-the rest is host numpy. The JAX package's `mesh` argument is not ported
-(distribution is a later slice of the port).
+the rest is host numpy. `group=` (a parallel.mesh.DataGroup; the JAX
+package's `mesh`, amazon.py:16-127) passes through to predict_patches:
+every rank calls these with its own apply_fn, the patch grid is sharded
+over the ranks, and every rank returns the whole result.
 """
 
 import time
@@ -22,22 +24,24 @@ from ..ops.patches import extract_patches_nonoverlap, reconstruct_from_patches
 from .sliding import predict_patches, seg_ids_prob1, seg_prob1_f16
 
 
-def _seg_ids_probs(apply_fn, patch_ts, batch_size, full_probs):
+def _seg_ids_probs(apply_fn, patch_ts, batch_size, full_probs, group):
     """Batched forward -> (class ids, class-1 probabilities). By default
     the ids (uint8) and the class-1 plane (f16) are reduced on the device
     before the copy to the host (seg_ids_prob1); full_probs=True copies
     the f32 probability volumes, as the reference's flow does."""
     if full_probs:
-        preds = predict_patches(apply_fn, patch_ts, batch_size=batch_size)
+        preds = predict_patches(apply_fn, patch_ts, batch_size=batch_size,
+                                group=group)
         seg = preds["seg"] if isinstance(preds, dict) else preds
         return np.argmax(seg, axis=-1), seg[..., 1]
     out = predict_patches(apply_fn, patch_ts, batch_size=batch_size,
-                          device_post=seg_ids_prob1)
+                          device_post=seg_ids_prob1, group=group)
     return out["ids"], out["prob1"].astype(np.float32)
 
 
 def prediction(apply_fn, image_array, image_ref, final_mask, mask_amazon_ts,
-               patch_size, area, batch_size=32, full_probs=False):
+               patch_size, area, batch_size=32, full_probs=False,
+               group=None):
     """Returns (ref_final, pre_final, prob_reconstructed, ref_reconstructed,
     ref_clip, clipping_mask, test_time) — the tuple of utils.py:505-546."""
     H, W = image_ref.shape
@@ -48,7 +52,7 @@ def prediction(apply_fn, image_array, image_ref, final_mask, mask_amazon_ts,
 
     start_test = time.time()
     p_labels, probs = _seg_ids_probs(apply_fn, patch_ts.astype(np.float32),
-                                     batch_size, full_probs)
+                                     batch_size, full_probs, group)
     end_test = time.time() - start_test
 
     ref_reconstructed = reconstruct_from_patches(patches_lb, H, W, order="col")
@@ -84,7 +88,8 @@ def prediction(apply_fn, image_array, image_ref, final_mask, mask_amazon_ts,
 
 
 def prediction2(apply_fn, image_array, image_ref, final_mask, mask_amazon_ts,
-                patch_size, area, batch_size=32, full_probs=False):
+                patch_size, area, batch_size=32, full_probs=False,
+                group=None):
     """utils2.py:370-417: like prediction() but patches come from
     extract_patches_right_region_prediction (only fully-valid patches, stride =
     patch_size) — suitable when the raster footprint excludes border regions.
@@ -106,7 +111,7 @@ def prediction2(apply_fn, image_array, image_ref, final_mask, mask_amazon_ts,
 
     start_test = time.time()
     p_labels, probs = _seg_ids_probs(apply_fn, patch_ts, batch_size,
-                                     full_probs)
+                                     full_probs, group)
     end_test = time.time() - start_test
 
     ref_reconstructed = reconstruct_from_patches(patches_lb, H, W, order="col")
@@ -116,20 +121,21 @@ def prediction2(apply_fn, image_array, image_ref, final_mask, mask_amazon_ts,
 
 
 def output_prediction_FC(apply_fn, image_array, final_mask, patch_size,
-                         batch_size=32, full_probs=False):
+                         batch_size=32, full_probs=False, group=None):
     """utils2.py:304-310: probability-map-only whole-scene prediction (class-1
     probs reduced to f16 on device by default; full_probs keeps f32 volumes)."""
     start_test = time.time()
     patch_ts = extract_patches_nonoverlap(image_array, patch_size, order="col")
     if full_probs:
         preds = predict_patches(apply_fn, patch_ts.astype(np.float32),
-                                batch_size=batch_size)
+                                batch_size=batch_size, group=group)
         seg = preds["seg"] if isinstance(preds, dict) else preds
         probs = seg[..., 1]
     else:
         probs = predict_patches(apply_fn, patch_ts.astype(np.float32),
                                 batch_size=batch_size,
-                                device_post=seg_prob1_f16).astype(np.float32)
+                                device_post=seg_prob1_f16,
+                                group=group).astype(np.float32)
     end_test = time.time() - start_test
     H, W = final_mask.shape[:2]
     prob_reconstructed = reconstruct_from_patches(probs, H, W, order="col")

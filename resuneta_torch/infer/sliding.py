@@ -4,12 +4,20 @@ Reference flow (test_ISPRS.py:268-333): non-overlapping chop -> predict ->
 argmax -> row-major reconstruction. Patches go through the model in
 batches; the production path (`make_seg_ids_fn`) uploads uint8 pixels,
 normalizes and argmaxes on the device and brings back uint8 ids only.
+
+`predict_patches` and `predict_scene` take `group=` (a
+parallel.mesh.DataGroup; the reference's `mesh`, sliding.py:124-263):
+every rank calls them with the same patches and apply_fn on its own card,
+each batch of the patch grid is sharded over the ranks, and the ranks'
+host outputs are gathered, so every rank returns what one rank would.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..parallel.mesh import shard_batch
 from ..ops.normalize import normalize_rgb
 from ..ops.patches import extract_patches_nonoverlap, reconstruct_from_patches
 
@@ -77,22 +85,44 @@ def make_seg_ids_fn(model, multitask=True, norm_type=None, device=None):
     return fn
 
 
-def predict_patches(apply_fn, patches, batch_size=32, device_post=None):
+def _gather(out, group):
+    """The ranks' host outputs (equal shapes) concatenated in rank order
+    along the batch, on every rank, over the group's gloo channel."""
+    def cat(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        parts = [torch.empty_like(t) for _ in range(group.size)]
+        dist.all_gather(parts, t, group=group.host)
+        return torch.cat(parts).numpy()
+
+    if isinstance(out, dict):
+        return {k: cat(v) for k, v in out.items()}
+    return cat(out)
+
+
+def predict_patches(apply_fn, patches, batch_size=32, device_post=None,
+                    group=None):
     """Run apply_fn over (N, P, P, C) patches in batches of batch_size,
     padding the tail batch by repeating its last patch. device_post reduces
-    each batch on the device before the copy to the host. Returns numpy:
+    each batch on the device before the copy to the host. With `group`,
+    the batch size is rounded to a multiple of the ranks (at least one row
+    each, as the reference does, sliding.py:136-140) and each rank runs its
+    rows of every batch; all ranks return the whole result. Returns numpy:
     a dict of arrays for multitask outputs, else an array."""
     n = patches.shape[0]
+    if group is not None:
+        batch_size = max(batch_size // group.size, 1) * group.size
     outs = []
     for i in range(0, n, batch_size):
         chunk = patches[i:i + batch_size]
         pad = batch_size - chunk.shape[0]
         if pad:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
-        out = apply_fn(np.ascontiguousarray(chunk))
+        out = apply_fn(np.ascontiguousarray(shard_batch(chunk, group)))
         if device_post is not None:
             out = device_post(out)
         out = _to_host(out)
+        if group is not None:
+            out = _gather(out, group)
         if pad:
             out = {k: v[:-pad] for k, v in out.items()} \
                 if isinstance(out, dict) else out[:-pad]
@@ -103,18 +133,19 @@ def predict_patches(apply_fn, patches, batch_size=32, device_post=None):
 
 
 def predict_scene(apply_fn, image, patch_size, batch_size=32, multitask=True,
-                  ids_only=False):
+                  ids_only=False, group=None):
     """Whole-scene segmentation: chop -> predict -> argmax -> reconstruct.
     Returns (class_map (H', W'), the raw patch predictions, or uint8 patch
-    ids when ids_only, argmaxed on the device)."""
+    ids when ids_only, argmaxed on the device). `group` as in
+    predict_patches."""
     image = np.asarray(image)
     patches = extract_patches_nonoverlap(image, patch_size, order="row")
     if ids_only:
         preds = predict_patches(apply_fn, patches, batch_size,
-                                device_post=seg_ids_u8)
+                                device_post=seg_ids_u8, group=group)
         seg_ids = preds
     else:
-        preds = predict_patches(apply_fn, patches, batch_size)
+        preds = predict_patches(apply_fn, patches, batch_size, group=group)
         seg = preds["seg"] if multitask else preds
         seg_ids = np.argmax(seg, axis=-1)
     class_map = reconstruct_from_patches(seg_ids, image.shape[0],

@@ -11,6 +11,8 @@ matches model.compile(loss=..., loss_weights=...) in the reference
 
 import torch
 
+from .parallel import axis
+
 _KERAS_EPS = 1e-7  # K.epsilon()
 
 
@@ -19,11 +21,13 @@ def tanimoto_loss(label, pred):
     (multitasking_utils.py:38-68). label, pred: (B, H, W, C); returns the
     per-sample coefficients (B,). The weights come from `label`, whatever
     it is: the dual passes the predictions there on purpose, and then the
-    weights carry gradient."""
+    weights carry gradient. Inside a data-parallel step the volumes are
+    the global batch's (pmean over the ranks, losses.py:29-34), and then
+    their gradient goes back through the all-reduce."""
     label = label.float()
     pred = pred.float()
     smooth = 1e-5
-    vli = label.sum(dim=(1, 2)).mean(dim=0)          # (C,) class volumes
+    vli = axis.pmean(label.sum(dim=(1, 2)).mean(dim=0))  # (C,) volumes
     wli = 1.0 / vli ** 2                            # inf where a volume is 0
     inf = torch.isinf(wli)
     # NiftyNet's handling: an inf weight becomes the largest finite one

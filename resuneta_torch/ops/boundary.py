@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from ..device import check_current_device
 from ..kernels import build
 from .distance import shift
 
@@ -230,16 +231,16 @@ def boundary_label(planes, tile=None):
         return boundary_label_reference(planes)
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
+    check_current_device(planes)
     out = torch.empty((P, H, W), dtype=torch.float32, device=planes.device)
     flags = torch.empty(P, dtype=torch.int32, device=planes.device)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        args = (planes.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W)
-        if tiled:
-            rc = _kernel("canny_boundary_tiled")(*args, tile, HALO,
-                                                 HYSTERESIS_ITERS, stream)
-        else:
-            rc = _kernel("canny_boundary")(*args, HYSTERESIS_ITERS, stream)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    args = (planes.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W)
+    if tiled:
+        rc = _kernel("canny_boundary_tiled")(*args, tile, HALO,
+                                             HYSTERESIS_ITERS, stream)
+    else:
+        rc = _kernel("canny_boundary")(*args, HYSTERESIS_ITERS, stream)
     _launched(rc, tiled, PASSES)
     return out
 
@@ -274,12 +275,12 @@ def hysteresis(planes, out, flags, tile=None):
         return out
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = _kernel("canny_hysteresis")(
-            planes.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W,
-            tile if tiled else H, HALO if tiled else 0, HYSTERESIS_ITERS,
-            stream)
+    check_current_device(planes)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    rc = _kernel("canny_hysteresis")(
+        planes.data_ptr(), out.data_ptr(), flags.data_ptr(), P, H, W,
+        tile if tiled else H, HALO if tiled else 0, HYSTERESIS_ITERS,
+        stream)
     _launched(rc, tiled, 1)
     return out
 

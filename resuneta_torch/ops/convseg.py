@@ -59,6 +59,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..device import check_current_device
 from ..kernels import build
 
 LAUNCHES = 0
@@ -181,6 +182,7 @@ def bn_act_conv(x, a, b, w, bias, *, dilation, act=True):
                                      act=act)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    check_current_device(x)
     N, H, W, C = x.shape
     Cout = w.shape[3]
     a32 = a.float().contiguous()
@@ -192,12 +194,11 @@ def bn_act_conv(x, a, b, w, bias, *, dilation, act=True):
         if t.data_ptr() % 16:
             raise ValueError("x, w and y must be 16-byte aligned")
     fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), a32.data_ptr(), b32.data_ptr(), wb.data_ptr(),
-                bias32.data_ptr(), y.data_ptr(), N, H, W, C, Cout,
-                int(dilation), int(bool(act)), int(x.dtype == torch.bfloat16),
-                stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), a32.data_ptr(), b32.data_ptr(), wb.data_ptr(),
+            bias32.data_ptr(), y.data_ptr(), N, H, W, C, Cout,
+            int(dilation), int(bool(act)), int(x.dtype == torch.bfloat16),
+            stream)
     if rc != 0:
         raise RuntimeError(f"convseg kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
@@ -311,6 +312,7 @@ def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation, act=True):
                                      dilation=dilation, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    check_current_device(x)
     N, H, W, C = x.shape
     vecs = [t.float().contiguous() for t in (a, b, mean, invstd)]
     # wT[t, o, c] = w[t, c, o]: the dgrad GEMM's B operand, row-major (one
@@ -333,12 +335,11 @@ def segment_bwd(x, g, a, b, mean, invstd, w, *, dilation, act=True):
             raise ValueError("x, g, w, dx and the workspace must be 16-byte "
                              "aligned")
     n = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in vecs),
-                wT.data_ptr(), dx.data_ptr(), dw.data_ptr(), vec.data_ptr(),
-                work.data_ptr(), N, H, W, C, int(dilation), int(bool(act)),
-                int(x.dtype == torch.bfloat16), ctypes.byref(n), stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in vecs),
+            wT.data_ptr(), dx.data_ptr(), dw.data_ptr(), vec.data_ptr(),
+            work.data_ptr(), N, H, W, C, int(dilation), int(bool(act)),
+            int(x.dtype == torch.bfloat16), ctypes.byref(n), stream)
     BWD_LAUNCHES += n.value
     if C > 128:
         WIDE_BWD_LAUNCHES += n.value

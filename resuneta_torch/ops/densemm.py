@@ -37,6 +37,7 @@ import functools
 
 import torch
 
+from ..device import check_current_device
 from ..kernels import build
 from .convseg import no_tf32
 
@@ -325,6 +326,7 @@ def dense_mm_fwd(xs, w, bias, *, acts=None, ups=None, strides=None):
                                   strides=strides)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
+    check_current_device(x0)
     N, H, W = _geometry(xs, ups, strides)
     cout = w.shape[1]
     bf16 = x0.dtype == torch.bfloat16
@@ -337,12 +339,11 @@ def dense_mm_fwd(xs, w, bias, *, acts=None, ups=None, strides=None):
     ptrs, (cins, up, st, ac) = _carrays(xs, acts, ups, strides)
     n = ctypes.c_int(0)
     fwd, _ = _kernels()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = fwd(ctypes.cast(ptrs, ctypes.c_void_p), cins, up, st, ac,
-                 len(xs), wc.data_ptr(), b32.data_ptr(), y.data_ptr(), N, H,
-                 W, cout, int(x0.dtype == torch.bfloat16), ctypes.byref(n),
-                 stream)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    rc = fwd(ctypes.cast(ptrs, ctypes.c_void_p), cins, up, st, ac,
+             len(xs), wc.data_ptr(), b32.data_ptr(), y.data_ptr(), N, H,
+             W, cout, int(x0.dtype == torch.bfloat16), ctypes.byref(n),
+             stream)
     LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"densemm forward launch failed: cudaError {rc}")
@@ -369,6 +370,7 @@ def dense_mm_bwd(xs, g, w, *, acts=None, ups=None, strides=None):
                                       strides=strides)
     if x0.device.type != "cuda":
         raise ValueError(f"no kernel for device {x0.device}")
+    check_current_device(x0)
     bf16 = x0.dtype == torch.bfloat16
     # W (bf16: dgrad reads its rows) or W^T (f32), in the compute type
     wk = (w if bf16 else w.t()).to(
@@ -390,13 +392,12 @@ def dense_mm_bwd(xs, g, w, *, acts=None, ups=None, strides=None):
     dptrs = (ctypes.c_void_p * len(xs))(*(d.data_ptr() for d in dxs))
     n = ctypes.c_int(0)
     _, bwd = _kernels()
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = bwd(ctypes.cast(ptrs, ctypes.c_void_p), ci, up, st, ac, len(xs),
-                 g.data_ptr(), wk.data_ptr(),
-                 ctypes.cast(dptrs, ctypes.c_void_p), dwb.data_ptr(),
-                 work.data_ptr(), chunks, N, H, W, cout,
-                 int(x0.dtype == torch.bfloat16), ctypes.byref(n), stream)
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    rc = bwd(ctypes.cast(ptrs, ctypes.c_void_p), ci, up, st, ac, len(xs),
+             g.data_ptr(), wk.data_ptr(),
+             ctypes.cast(dptrs, ctypes.c_void_p), dwb.data_ptr(),
+             work.data_ptr(), chunks, N, H, W, cout,
+             int(x0.dtype == torch.bfloat16), ctypes.byref(n), stream)
     BWD_LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"densemm backward launch failed: cudaError {rc}")

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..device import check_current_device
 from ..kernels import build
 
 LAUNCHES = 0
@@ -308,6 +309,7 @@ def distance_transform_edt(planes, tile=None, design=None):
             planes, PLAIN_TILE if tile is None else tile)
     if planes.device.type != "cuda":
         raise ValueError(f"no kernel for device {planes.device}")
+    check_current_device(planes)
     if P > 65535:
         raise ValueError(f"the EDT kernel (K5/K7) takes up to 65535 planes "
                          f"a call, got {P}")
@@ -316,13 +318,12 @@ def distance_transform_edt(planes, tile=None, design=None):
                         device=planes.device) if lay["nbanded"] else None)
     steps = (ctypes.c_int * len(lay["steps"]))(*lay["steps"])
     n = ctypes.c_int(0)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream(planes.device).cuda_stream
-        rc = _kernel()(planes.data_ptr(), out.data_ptr(),
-                       None if work is None else work.data_ptr(), P, H, W,
-                       steps, len(lay["steps"]), lay["nbanded"],
-                       lay["tile"] or 0, lay["cs"], lay["band"], lay["halo"],
-                       lay["R"], ctypes.byref(n), stream)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    rc = _kernel()(planes.data_ptr(), out.data_ptr(),
+                   None if work is None else work.data_ptr(), P, H, W,
+                   steps, len(lay["steps"]), lay["nbanded"],
+                   lay["tile"] or 0, lay["cs"], lay["band"], lay["halo"],
+                   lay["R"], ctypes.byref(n), stream)
     LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"jfa kernel launch failed: cudaError {rc}")

@@ -8,8 +8,11 @@ variance E[x²] − mean²; `bn_apply` normalises with them and has the
 reference's closed-form VJP (fused_bn.py:86-130): the ReLU mask is
 recomputed in x's dtype, and dmean, dvar flow on through autograd into
 `bn_stats`, so a statistics pass shared by several applies gets every
-cotangent. Sync-BN across devices (the reference's pmean) is not ported:
-distribution is a later slice.
+cotangent. Sync-BN (fused_bn.py:44-49): inside a data-parallel step
+(parallel/axis.py) `bn_stats` pmeans the raw moments over the ranks before
+forming the variance, so every consumer (BnApply, K1's affine, K2's folded
+dmean/dvar through the all-reduce's backward) sees the global batch's
+statistics.
 
 Eval folds BN into a per-channel affine y = x*a + b of the running
 statistics, formed in f32 in the reference's order of operations:
@@ -18,14 +21,16 @@ a = scale * rsqrt(var + eps), b = bias - mean * scale * rsqrt(var + eps).
 
 import torch
 
+from ..parallel import axis
+
 
 def bn_stats(x):
     """(mean, var) over every axis but the last, f32, var = E[x²] − mean²
-    (flax's fast variance). Differentiable: call once and share."""
+    (flax's fast variance), of the global batch inside a data-parallel
+    step. Differentiable: call once and share."""
     dims = tuple(range(x.dim() - 1))
     xs = x.float()
-    mean = xs.mean(dims)
-    msq = (xs * xs).mean(dims)
+    mean, msq = axis.pmean((xs.mean(dims), (xs * xs).mean(dims)))
     return mean, msq - mean * mean
 
 

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..device import check_current_device
 from ..kernels import build
 from .convseg import no_tf32
 
@@ -157,6 +158,7 @@ def pool_conv_fwd(x, w, bias, *, k):
         return pool_conv_reference(x, w, bias, k=k)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    check_current_device(x)
     N, H, W, C = x.shape
     cout = w.shape[1]
     w32 = w.float().contiguous()       # rounded to the compute type on chip
@@ -165,11 +167,10 @@ def pool_conv_fwd(x, w, bias, *, k):
     _aligned(x, w32, y)
     n = ctypes.c_int(0)
     fwd, _, _ = _kernels()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fwd(x.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(), N,
-                 H, W, C, cout, int(k), int(x.dtype == torch.bfloat16),
-                 ctypes.byref(n), stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fwd(x.data_ptr(), w32.data_ptr(), b32.data_ptr(), y.data_ptr(), N,
+             H, W, C, cout, int(k), int(x.dtype == torch.bfloat16),
+             ctypes.byref(n), stream)
     LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"poolconv forward launch failed: cudaError {rc}")
@@ -195,6 +196,7 @@ def pool_conv_bwd(x, g, w, *, k):
         return pool_conv_bwd_reference(x, g, w, k=k)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    check_current_device(x)
     w32 = w.float().contiguous()       # rounded to the compute type on chip
     dx = torch.empty_like(x)
     _, bwd, rows = _kernels()
@@ -205,12 +207,11 @@ def pool_conv_bwd(x, g, w, *, k):
                        device=x.device)
     _aligned(x, g, w32, dx)
     n = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = bwd(x.data_ptr(), g.data_ptr(), w32.data_ptr(), dx.data_ptr(),
-                 dwb.data_ptr(), part.data_ptr(), N, H, W, C, cout,
-                 int(k), int(x.dtype == torch.bfloat16), ctypes.byref(n),
-                 stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = bwd(x.data_ptr(), g.data_ptr(), w32.data_ptr(), dx.data_ptr(),
+             dwb.data_ptr(), part.data_ptr(), N, H, W, C, cout,
+             int(k), int(x.dtype == torch.bfloat16), ctypes.byref(n),
+             stream)
     BWD_LAUNCHES += n.value
     if rc != 0:
         raise RuntimeError(f"poolconv backward launch failed: cudaError {rc}")

@@ -19,6 +19,11 @@ loading that with `restore_variables`.
 one background thread, each file under a temporary name and then
 `os.replace`, so the training goes on while the file is written and a
 crash leaves the old checkpoint or the new one, never half of one.
+
+Across data-parallel ranks the coordinator (rank 0) alone saves, and its
+AsyncSaver runs there only (train/loop.py); `restore` runs on every rank,
+each after a barrier, so no rank reads a checkpoint before rank 0's saves
+are on disk.
 """
 
 import json
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from ..convert import from_flax
+from ..parallel.multihost import barrier
 
 CKPT_FILE = "checkpoint.pt"
 
@@ -167,12 +173,14 @@ def _ckpt_file(path):
     return f
 
 
-def restore(ckpt_dir, state, learning_rate_override=None):
+def restore(ckpt_dir, state, learning_rate_override=None, group=None):
     """Load a checkpoint of the port into an existing TrainState: the
     model's parameters and buffers, the optimizer's state and the step,
     each onto the device its tensor already lives on; then the learning
     rate override, as the reference does on resume. Returns
-    (state, meta), meta {} where no meta JSON is beside the checkpoint."""
+    (state, meta), meta {} where no meta JSON is beside the checkpoint.
+    With `group` every rank calls it, and reads after a barrier."""
+    barrier(group, f"restore {ckpt_dir}")
     payload = torch.load(_ckpt_file(ckpt_dir), map_location="cpu",
                          weights_only=True)
     state.model.load_state_dict(payload["model"], strict=True)

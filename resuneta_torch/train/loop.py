@@ -7,20 +7,28 @@ best-model checkpointing.
 
 The loop is host-side orchestration only: the steps (train/steps.py) run on
 their device, and their metric rows stay device tensors until the epoch
-ends, so the host never waits on the device inside an epoch. The
-reference's `mesh` argument has no counterpart: distribution is a later
-slice of the port.
+ends, so the host never waits on the device inside an epoch.
+
+Data parallelism (`group=`, the reference's `mesh`, loop.py:71-130): every
+rank draws the same permutation and loads only its rows of each global
+batch of config.batch_size (which R must divide), through the steps built
+with the same group. Their rows are already reduced over the ranks, so
+every rank reads the same metrics and early stopping decides alike; rank 0
+alone prints, writes TensorBoard, profiles and saves, and the ranks meet at
+a barrier once its saves are on disk.
 """
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..metrics import compute_mcc
+from ..parallel import multihost
+from ..parallel.mesh import shard_batch
 from ..utils.table import ascii_table
 from .checkpoint import AsyncSaver, save_best
 from .steps import METRICS_MULTITASK, METRICS_SINGLE
@@ -71,20 +79,27 @@ def _add_scalars(train_w, val_w, epoch, name, train_loss, val_loss,
         val_w.add_scalar(name + "/MCC", float(val_mcc), epoch)
 
 
-def epoch_batches(n, batch_size):
+def epoch_batches(n, batch_size, ranks=1):
     """(batches, batch size) of an epoch pass over n samples: the whole
     batches, or one short batch where n is under one batch (rather than
-    silently skipping the split)."""
+    silently skipping the split), cut to a multiple of the ranks; raises
+    where n is under the ranks, which cannot share a batch."""
     if n // batch_size == 0 and n > 0:
-        return 1, n
+        if n < ranks:
+            raise ValueError(f"{n} samples cannot make a batch for {ranks} "
+                             "ranks")
+        return 1, n // ranks * ranks
     return n // batch_size, batch_size
 
 
-def _epoch_pass(step_fn, state, ds, batch_size, order, train: bool):
+def _epoch_pass(step_fn, state, ds, batch_size, order, train: bool,
+                group=None):
     rows = []
-    n_batches, batch_size = epoch_batches(len(ds), batch_size)
+    n_batches, batch_size = epoch_batches(
+        len(ds), batch_size, 1 if group is None else group.size)
     for b in range(n_batches):
-        pos = order[b * batch_size:(b + 1) * batch_size]
+        # this rank's rows of the global batch
+        pos = shard_batch(order[b * batch_size:(b + 1) * batch_size], group)
         raw = ds.get_batch(pos)
         if train:
             state, row = step_fn(state, raw)
@@ -97,13 +112,26 @@ def _epoch_pass(step_fn, state, ds, batch_size, order, train: bool):
 
 
 def train_model(config: TrainConfig, state, train_step, eval_step,
-                train_ds, val_ds):
+                train_ds, val_ds, group=None):
     """Returns (state, history list of per-epoch dicts). Saves the best checkpoint
-    under config.results_path like the reference saves best_model.h5."""
+    under config.results_path like the reference saves best_model.h5.
+    With `group` (a parallel.mesh.DataGroup; train_step and eval_step built
+    with it) every rank calls this and trains its shard of each batch."""
     names = METRICS_MULTITASK if config.multitasking else METRICS_SINGLE
+    if group is not None and config.batch_size % group.size:
+        raise ValueError(f"batch size {config.batch_size} does not divide "
+                         f"over {group.size} ranks")
+    lead = multihost.is_coordinator(group)
+    if not lead:
+        # rank 0 alone prints, writes TensorBoard, profiles and saves
+        config = replace(config, verbose=False, tensorboard=False,
+                         profile_dir=None, async_checkpoint=False,
+                         keep_last=0)
     train_w, val_w = _writers(config)
-    os.makedirs(config.results_path, exist_ok=True)
-    ckpt_path = os.path.join(config.results_path, config.checkpoint_name)
+    if lead:
+        os.makedirs(config.results_path, exist_ok=True)
+    ckpt_path = os.path.join(config.results_path, config.checkpoint_name) \
+        if lead else None
 
     if config.verbose:
         print("Start training...")
@@ -122,15 +150,18 @@ def train_model(config: TrainConfig, state, train_step, eval_step,
     # mid-epoch must not abandon a checkpoint still being written (its meta
     # JSON follows only once the checkpoint is on disk, see AsyncSaver).
     try:
-        return _train_epochs(config, state, train_step, eval_step, train_ds,
-                             val_ds, names, train_w, val_w, saver, rng,
-                             history, ckpt_path)
+        out = _train_epochs(config, state, train_step, eval_step, train_ds,
+                            val_ds, names, train_w, val_w, saver, rng,
+                            history, ckpt_path, group)
     finally:
         if saver is not None:
             saver.close()
         for w in (train_w, val_w):
             if w is not None:
                 w.close()
+    # rank 0's checkpoints are on disk: any rank may read them now
+    multihost.barrier(group, "train_model end")
+    return out
 
 
 def _profile_start():
@@ -154,7 +185,9 @@ def _profile_stop(prof, config):
 
 
 def _train_epochs(config, state, train_step, eval_step, train_ds, val_ds,
-                  names, train_w, val_w, saver, rng, history, ckpt_path):
+                  names, train_w, val_w, saver, rng, history, ckpt_path,
+                  group):
+    ranks = 1 if group is None else group.size
     min_loss = float("inf")
     cont = 0
     for epoch in range(config.epochs):
@@ -163,18 +196,19 @@ def _train_epochs(config, state, train_step, eval_step, train_ds, val_ds,
         prof = _profile_start() \
             if config.profile_dir is not None and epoch == 0 else None
         state, loss_tr = _epoch_pass(
-            train_step, state, train_ds, config.batch_size, perm, train=True
-        )
+            train_step, state, train_ds, config.batch_size, perm, train=True,
+            group=group)
         if prof is not None:
             _profile_stop(prof, config)
         train_time = time.time() - t0
         # the samples the pass ran: whole batches, or the one short batch
-        n_batches, n_per = epoch_batches(len(train_ds), config.batch_size)
+        n_batches, n_per = epoch_batches(len(train_ds), config.batch_size,
+                                         ranks)
         n_seen = n_batches * n_per
         order_val = np.arange(len(val_ds))
         _, loss_val = _epoch_pass(
-            eval_step, state, val_ds, config.batch_size, order_val, train=False
-        )
+            eval_step, state, val_ds, config.batch_size, order_val,
+            train=False, group=group)
 
         train_metrics = dict(zip(names, loss_tr.tolist()))
         val_metrics = dict(zip(names, loss_val.tolist()))
@@ -250,7 +284,7 @@ def _train_epochs(config, state, train_step, eval_step, train_ds, val_ds,
                 print("Saving best model...")
             if saver is not None:
                 saver.save_best(ckpt_path, state, epoch, min_loss)
-            else:
+            elif ckpt_path is not None:
                 save_best(ckpt_path, state, epoch, min_loss)
         if saver is not None and config.keep_last:
             saver.save_epoch(os.path.join(config.results_path, "checkpoints"),

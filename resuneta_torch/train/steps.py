@@ -2,11 +2,21 @@
 (resuneta_tpu/train/steps.py:42-78, :124-198; train_ISPRS.py:115-187).
 
 One step over the batch on the state's device; the metric rows keep the
-reference's names and order (METRICS_MULTITASK, METRICS_SINGLE). The
-reference's `mesh` distribution is not ported: distribution is a later
-slice. The step factories take `device=None`, the card, and raise without
-one; pass device="cpu" for the plain PyTorch path. The batch is moved to
-that device; the state's model must already be there.
+reference's names and order (METRICS_MULTITASK, METRICS_SINGLE). The step
+factories take `device=None`, the card, and raise without one; pass
+device="cpu" for the plain PyTorch path. The batch is moved to that device;
+the state's model must already be there.
+
+Data parallelism (`group=`, a parallel.mesh.DataGroup; the counterpart of
+the reference's shard_map over a 'data' mesh, steps.py:81-198): each of R
+ranks runs the step on its B/R rows of the global batch with the kernels
+live, and the step computes what one device computes on all B rows. Its
+body runs inside `parallel.axis.data_axis(group)`, so the BN statistics and
+the Tanimoto class volumes are the global batch's; after the backward the
+gradients are all-reduced to their mean through one flat buffer (the
+reference's pmean of the gradients, steps.py:165-168); the metric row
+averages the losses and the accuracy and sums the confusion counts over the
+ranks (steps.py:62-78). Every rank then holds the same parameters.
 """
 
 from typing import Dict
@@ -15,6 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..metrics import binary_counts, categorical_accuracy
+from ..parallel import axis
 
 METRICS_MULTITASK = [
     "loss", "seg_loss", "bound_loss", "dist_loss", "color_loss",
@@ -35,7 +46,10 @@ def _multitask_total(loss_fns, loss_weights, outputs, batch):
     return total, per_head
 
 
-def _metrics_row(multitasking, total, per_head, seg_pred, seg_true):
+def _metrics_row(multitasking, total, per_head, seg_pred, seg_true,
+                 group=None):
+    """The row; over a group, one all-reduce: the means (losses, accuracy)
+    averaged, the last four entries (the counts) summed."""
     acc = categorical_accuracy(seg_true, seg_pred)
     tp, fp, tn, fn = binary_counts(seg_true, seg_pred)
     if multitasking:
@@ -44,7 +58,23 @@ def _metrics_row(multitasking, total, per_head, seg_pred, seg_true):
                 per_head.get("color", zero), acc, tp, fp, tn, fn]
     else:
         vals = [total, acc, tp, fp, tn, fn]
-    return torch.stack([v.detach().float() for v in vals])
+    row = torch.stack([v.detach().float() for v in vals])
+    if group is None:
+        return row
+    row, = axis.all_reduce_flat([row], group, mean=False)
+    return torch.cat([row[:-4] / group.size, row[-4:]])
+
+
+@torch.no_grad()
+def _pmean_grads(params, group):
+    """Each gradient replaced by its mean over the group's ranks, through
+    one flat all-reduce (a parameter without a gradient keeps none: the
+    graph, and so that set, is the same on every rank)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if group is None or not grads:
+        return
+    for g, m in zip(grads, axis.all_reduce_flat(grads, group, mean=True)):
+        g.copy_(m)
 
 
 def _losses(loss_fns, loss_weights, multitasking, outputs, batch):
@@ -58,7 +88,7 @@ def _on(batch, dev):
 
 
 def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
-                    preprocess=None, device=None):
+                    preprocess=None, device=None, group=None):
     """Returns train_step(state, batch) -> (state, metrics_row).
 
     batch: 'image' plus the label heads ('seg' [+ 'bound', 'dist',
@@ -67,44 +97,51 @@ def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
     step runs the model in train mode (batch statistics, running buffers
     updated in place), backpropagates the weighted total, applies the
     optimizer and returns the row of the forward's metrics. The parameters'
-    gradients stay in `.grad` until the next step."""
+    gradients (over a group: their mean over the ranks) stay in `.grad`
+    until the next step. With `group`, `batch` is this rank's rows of the
+    global batch (parallel.mesh.shard_batch)."""
     dev = resolve_device(device)
 
     def train_step(state, batch):
-        batch = preprocess(batch) if preprocess is not None else _on(batch,
-                                                                     dev)
-        model = state.model
-        model.train()
-        outputs = model(batch["image"])
-        total, per_head = _losses(loss_fns, loss_weights, multitasking,
-                                  outputs, batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
-        seg_pred = outputs["seg"] if multitasking else outputs
-        return state, _metrics_row(multitasking, total, per_head,
-                                   seg_pred.detach(), batch["seg"])
+        with axis.data_axis(group):
+            batch = preprocess(batch) if preprocess is not None else _on(
+                batch, dev)
+            model = state.model
+            model.train()
+            outputs = model(batch["image"])
+            total, per_head = _losses(loss_fns, loss_weights, multitasking,
+                                      outputs, batch)
+            state.optimizer.zero_grad(set_to_none=True)
+            total.backward()
+            _pmean_grads(model.parameters(), group)
+            state.optimizer.step()
+            state.step += 1
+            seg_pred = outputs["seg"] if multitasking else outputs
+            return state, _metrics_row(multitasking, total, per_head,
+                                       seg_pred.detach(), batch["seg"],
+                                       group)
 
     return train_step
 
 
 def make_eval_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
-                   preprocess=None, device=None):
-    """test_on_batch: eval mode (running statistics), no gradients."""
+                   preprocess=None, device=None, group=None):
+    """test_on_batch: eval mode (running statistics), no gradients; `group`
+    as in make_train_step (the Tanimoto volumes and the row reduce over
+    the ranks)."""
     dev = resolve_device(device)
 
     def eval_step(state, batch):
-        batch = preprocess(batch) if preprocess is not None else _on(batch,
-                                                                     dev)
-        model = state.model
-        model.eval()
-        with torch.no_grad():
+        with axis.data_axis(group), torch.no_grad():
+            batch = preprocess(batch) if preprocess is not None else _on(
+                batch, dev)
+            model = state.model
+            model.eval()
             outputs = model(batch["image"])
             total, per_head = _losses(loss_fns, loss_weights, multitasking,
                                       outputs, batch)
             seg_pred = outputs["seg"] if multitasking else outputs
             return _metrics_row(multitasking, total, per_head, seg_pred,
-                                batch["seg"])
+                                batch["seg"], group)
 
     return eval_step

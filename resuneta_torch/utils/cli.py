@@ -13,3 +13,11 @@ def str2bool(v):
     if v.lower() in ("no", "false", "f", "n", "0"):
         return False
     raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def print_on_coordinator(group):
+    """print on rank 0 of a data-parallel group (or without one); a no-op
+    on the other ranks."""
+    if group is None or group.rank == 0:
+        return print
+    return lambda *args, **kwargs: None

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K9)
 against their plain versions, the mode-"2" segment (K10), the wrappers
-raising on what their kernels do not take, the 64 px model and train step
+raising on what their kernels do not take and off the current device, the
+data-parallel step as two ranks sharing the card, the 64 px model and train step
 on the card against the CPU plain path (in the default routing and in each
 opt-in mode), one 512 px train step's kernel launches, and the Amazon
 step (64 px, card against the CPU) with K3 and K4 in f32 at its 128 px
@@ -875,6 +876,68 @@ def test_k3_k4_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="K4"):               # C = 64
         poolconv.pool_conv_bwd(x64, torch.zeros((1, 4, 4, 8), device=cuda),
                                torch.zeros((64, 8), device=cuda), k=2)
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_off_the_current_device(cuda, monkeypatch):
+    """Each kernel's wrapper raises, and launches nothing, where its
+    tensors are not on the current device (the kernels query and set the
+    current device's attributes): here the current device is made to read
+    as another card."""
+    x, a, b, w, bias = _inputs(1, 8, 8, 32, 0, cuda)
+    xs, w3, bias3, spec = _k3_inputs([(32, 8, 8, False, 1, 1)], 32, 1,
+                                     torch.bfloat16, 0, cuda)
+    planes = torch.zeros((2, 16, 16), dtype=torch.int32, device=cuda)
+    g4 = torch.zeros((1, 4, 4, 8), device=cuda)
+    w4 = torch.zeros((32, 8), device=cuda)
+    calls = [
+        lambda: convseg.bn_act_conv(x, a, b, w, bias, dilation=1),
+        lambda: convseg.segment_bwd(x, x, a, b, a, b, w, dilation=1),
+        lambda: densemm.dense_mm_fwd(xs, w3, bias3, **spec),
+        lambda: densemm.dense_mm_bwd(xs, torch.zeros_like(xs[0]), w3,
+                                     **spec),
+        lambda: poolconv.pool_conv_fwd(x, w4, bias[:8], k=2),
+        lambda: poolconv.pool_conv_bwd(x, g4, w4, k=2),
+        lambda: distance.distance_transform_edt(planes),
+        lambda: boundary.boundary_label(planes),
+        lambda: boundary.hysteresis(
+            planes, torch.zeros((2, 16, 16), device=cuda),
+            torch.ones(2, dtype=torch.int32, device=cuda))]
+    counts = [(convseg, "LAUNCHES"), (convseg, "BWD_LAUNCHES"),
+              (densemm, "LAUNCHES"), (densemm, "BWD_LAUNCHES"),
+              (poolconv, "LAUNCHES"), (poolconv, "BWD_LAUNCHES"),
+              (distance, "LAUNCHES"), (boundary, "LAUNCHES")]
+    before = [getattr(m, k) for m, k in counts]
+    other = torch.cuda.current_device() + 1
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: other)
+    for call in calls:
+        with pytest.raises(ValueError, match="current device"):
+            call()
+    monkeypatch.undo()
+    assert [getattr(m, k) for m, k in counts] == before
+    convseg.bn_act_conv(x, a, b, w, bias, dilation=1)     # and it launches
+    torch.cuda.synchronize()
+    assert convseg.LAUNCHES == before[0] + 1
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_the_card_match_one_process(cuda, tmp_path):
+    """chip_smoke.dist_compare (the chip smoke's dist phase at 256 px in
+    bf16) at 64 px in f32: two gloo ranks sharing the card, 2 rows each of
+    a global batch of 4, 2 SGD steps of the dense-trunk multitask d6 with
+    K1-K6 live on each rank, against the same steps in this process on the
+    4 rows: the rows, the updates and the BN buffers within
+    chip_smoke.STEP_TOL's limits, the ranks' parameters bit for bit, each
+    rank's launches those of 2 steps."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    got = chip_smoke.dist_compare("gloo", tmp_path / "dist", patch=64,
+                                  batch=4, steps=2, dtype=torch.float32)
+    assert not got["failed"], (got["failed"], got["readings"],
+                               got["limits"])
+    assert got["launches_a_rank"] == chip_smoke.expected_counts(
+        2, True, 64, f32=True)
 
 
 # --------------------------------------------- K3's Hopper kernels (bf16)

@@ -22,7 +22,8 @@ epochs.
 
 The CLI on the CPU: UNet at 64 px trains, writes its checkpoint, meta and
 TensorBoard logs, and resumes with a new learning rate; its arguments are
-the JAX CLI's plus --device; --gpu_parallel raises with several cards."""
+the JAX CLI's plus --device; --gpu_parallel with several cards spawns one
+rank a card (both train CLIs), and runs in process otherwise."""
 
 import itertools
 import json
@@ -38,11 +39,14 @@ import torch
 
 from resuneta_torch import convert
 from resuneta_torch import losses as tlosses
+from resuneta_torch.cli import train_amazon as acli
 from resuneta_torch.cli import train_isprs as tcli
 from resuneta_torch.data import ArrayDataset, PackedDataset, \
     make_device_pipeline, write_packed_dataset
 from resuneta_torch.data.split import train_test_split
+from resuneta_torch.kernels import build
 from resuneta_torch.models import UNet
+from resuneta_torch.parallel import launch
 from resuneta_torch.train import (METRICS_MULTITASK, METRICS_SINGLE,
                                   TrainConfig, TrainState, checkpoint,
                                   create_train_state, make_eval_step,
@@ -432,11 +436,41 @@ def test_cli_trains_unet_on_the_cpu_and_resumes(tmp_path, capsys, packed64):
     assert "[INFO] new learning rate: 0.0005" in out
 
 
-def test_cli_gpu_parallel_raises_with_several_cards(monkeypatch, packed64):
+@pytest.mark.parametrize("cli", [tcli, acli], ids=["isprs", "amazon"])
+def test_cli_gpu_parallel_spawns_one_rank_a_card(monkeypatch, cli):
+    """--gpu_parallel True with 2 visible cards builds the kernels once,
+    then spawns 2 ranks of the CLI's run (NCCL, one a card) through a
+    file:// rendezvous and returns rank 0's history; with one card, with
+    --gpu_parallel False or on the CPU it runs here, without a group."""
+    calls = []
+    monkeypatch.setattr(cli, "run", lambda args, group=None: (
+        calls.append(("run", group)) or ("state", ["history"])))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tcli.main(["--gpu_parallel", "True", "--device", "cpu", "-dp",
-                   packed64])
+    monkeypatch.setattr(build, "build_all",
+                        lambda: calls.append(("build",)))
+
+    def spawn(fn, nprocs, args, timeout_s):
+        calls.append(("spawn", fn, nprocs, args[0], args[2], args[3]))
+        with open(args[4], "w") as f:
+            json.dump(["rank 0's history"], f)
+
+    monkeypatch.setattr(launch, "spawn", spawn)
+    assert cli.main(["--gpu_parallel", "True"]) == \
+        (None, ["rank 0's history"])
+    assert calls[0] == ("build",)
+    _, fn, nprocs, run, world, init = calls[1]
+    assert (fn, nprocs, run, world) == (launch._cli_rank, 2, cli.run, 2)
+    assert init.startswith("file://") and len(calls) == 2
+    for argv in (["--gpu_parallel", "False"],
+                 ["--gpu_parallel", "True", "--device", "cpu"]):
+        calls.clear()
+        assert cli.main(argv) == ("state", ["history"])
+        assert calls == [("run", None)]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    calls.clear()
+    assert cli.main(["--gpu_parallel", "True"]) == ("state", ["history"])
+    assert calls == [("run", None)]
 
 
 def test_cli_defaults_to_the_card(packed64, tmp_path):
