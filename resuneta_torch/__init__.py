@@ -30,7 +30,15 @@ Ported so far:
 - data-parallel training and inference, one process a card over
   torch.distributed (`parallel`: sync-BN, the Tanimoto volumes, the
   gradient mean and the metric counts reduced over the ranks; the train
-  CLIs' `--gpu_parallel` and torchrun; the sharded patch grid).
+  CLIs' `--gpu_parallel` and torchrun; the sharded patch grid and
+  overlap inference);
+- the rest of the model family (`models.ResUnetAV1`, `ResUnetALegacy`,
+  `ResNet50UNet`), the Keras-shaped `compat.Resunet_a` and the legacy
+  driver `compat.UNet` with its CLIs (`cli.legacy_train`,
+  `cli.legacy_test`, `utils.config.UnetConfig`, `data.legacy_utils`), the
+  test CLI's multitask figures (`cli.test_isprs`, K5 and K6 on its
+  reference planes) and the rematerialised train step
+  (`train.make_train_step(remat=True)`).
 """
 
 __version__ = "0.1.0"

@@ -9,9 +9,15 @@ Flow (test_ISPRS.py:238-415): load the CHW test image and RGB reference,
 normalize (norm_type 3 fits the scaler on the image itself), chop into
 non-overlapping patches, predict in batches, print the confusion matrix,
 accuracy, F1, recall, precision, per-class IoU and mIoU, and save the
-reconstructed class map as pred_seg_reconstructed.jpeg. --model_path is a
-.pt state_dict, an .npz of flattened Flax variables, or a training
-checkpoint directory of the port's train CLI (best_model.ckpt).
+reconstructed class map as pred_seg_reconstructed.jpeg. With
+--use_multitasking, for the first --max_viz_patches patches, the
+per-class/per-task grid pred{i}_classes.jpg (patch, seg, boundary and
+distance reference and prediction) and the colour head's render
+pred{i}_color.jpg (test_ISPRS.py:336-415): the reference labels come from
+the label kernels on the device (`multitask_viz_panels`), the figures from
+matplotlib, skipped with a printed line where it cannot be imported.
+--model_path is a .pt state_dict, an .npz of flattened Flax variables, or
+a training checkpoint directory of the port's train CLI (best_model.ckpt).
 --resunet_a False evaluates the UNet baseline.
 """
 
@@ -22,10 +28,8 @@ import numpy as np
 
 from ..utils.cli import str2bool
 
-MULTITASK_VIZ_NOTE = (
-    "per-class/per-task prediction grids and the HSV render are not written: "
-    "they need the boundary (Canny) and distance (JFA) label kernels, which "
-    "arrive with the training slice")
+VIZ_TITLES = ("Patch", "Seg Ref", "Seg Pred", "Bound Ref", "Bound Pred",
+              "Dist Ref", "Dist Pred")
 
 
 def build_parser():
@@ -64,14 +68,22 @@ def build_parser():
 
 
 def _save_image(path, rgb):
+    """Through matplotlib, else PIL; where neither imports, say so."""
     try:
         import matplotlib
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
         plt.imsave(path, rgb)
+        return
     except ImportError:
+        pass
+    try:
         from PIL import Image
-        Image.fromarray(rgb).save(path)
+    except ImportError:
+        print(f"neither matplotlib nor PIL can be imported: {path} is not "
+              "written")
+        return
+    Image.fromarray(rgb).save(path)
 
 
 def main(argv=None):
@@ -161,8 +173,94 @@ def main(argv=None):
                 class_ids_to_rgb(img_reconstructed, LABEL_DICT))
 
     if args.use_multitasking:
-        print(MULTITASK_VIZ_NOTE)
+        _save_multitask_viz(args, patches_test, patches_test_ref, preds,
+                            device)
     return metrics, cm
+
+
+def multitask_viz_panels(patch, ref_ids, pred, num_classes, device):
+    """The arrays of one patch's figures (test_ISPRS.py:336-415;
+    resuneta_tpu/cli/test_isprs.py:168-230), computed on `device`:
+    patch (P, P, C) normalised to [0, 1], ref_ids (P, P) class ids, pred
+    the patch's multitask outputs {"seg", "bound", "dist", "color"} (P, P,
+    .) f32. Returns numpy: "img" the uint8 patch; "seg_ref" the one-hot of
+    the ids (mod num_classes), "bound_ref" its boundary label
+    (ops.boundary: K6 or K8 on the card), "dist_ref" its distance label
+    (ops.distance: K5/K7); "hsv" the colour head scaled to cv2's HSV and
+    cast to uint8, "rgb" its RGB render (hsv_to_rgb_cv2, clipped, uint8),
+    "diff" the mean over channels of hsv minus the patch's HSV, scaled to
+    [-1, 1]."""
+    import torch
+
+    from ..ops.boundary import get_boundary_label
+    from ..ops.colorspace import hsv_to_rgb_cv2, rgb_to_hsv_cv2
+    from ..ops.distance import get_distance_label
+
+    img = (np.asarray(patch) * 255).clip(0, 255).astype(np.uint8)
+    ids = torch.as_tensor(np.asarray(ref_ids).astype(np.int64) % num_classes,
+                          device=device)
+    onehot = torch.nn.functional.one_hot(ids, num_classes).to(torch.float32)
+    hsv = (np.asarray(pred["color"]) * np.array([179, 255, 255])).astype(
+        np.uint8)
+    hsv_t = torch.as_tensor(hsv, device=device)
+    rgb = hsv_to_rgb_cv2(hsv_t).clamp(0, 255).to(torch.uint8)
+    diff = (hsv_t.float() - rgb_to_hsv_cv2(torch.as_tensor(
+        img, device=device))).mean(dim=-1)
+    rng = diff.max() - diff.min()
+    diff = 2 * (diff - diff.min()) / torch.where(
+        rng != 0, rng, torch.ones_like(rng)) - 1.0
+    return {"img": img, "seg_ref": onehot.cpu().numpy(),
+            "bound_ref": get_boundary_label(onehot).cpu().numpy(),
+            "dist_ref": get_distance_label(onehot).cpu().numpy(),
+            "hsv": hsv, "rgb": rgb.cpu().numpy(), "diff": diff.cpu().numpy()}
+
+
+def _save_multitask_viz(args, patches_test, patches_test_ref, preds, device):
+    """pred{i}_classes.jpg and pred{i}_color.jpg for the first
+    min(N, --max_viz_patches) patches; the panels are computed whether or
+    not matplotlib can draw them."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from matplotlib import cm as colormaps
+    except ImportError:
+        plt = None
+        print("matplotlib cannot be imported: the multitask figures are "
+              "not written")
+    n = min(len(patches_test), args.max_viz_patches)
+    for i in range(n):
+        pv = multitask_viz_panels(patches_test[i], patches_test_ref[i],
+                                  {k: v[i] for k, v in preds.items()},
+                                  args.num_classes, device)
+        if plt is None:
+            continue
+        grey = colormaps.Greys_r
+        fig1, axes = plt.subplots(nrows=args.num_classes, ncols=7,
+                                  figsize=(15, 10), squeeze=False)
+        for c in range(args.num_classes):
+            axes[c, 0].imshow(pv["img"])
+            for task, head in enumerate(("seg", "bound", "dist")):
+                axes[c, 2 * task + 1].imshow(pv[head + "_ref"][:, :, c],
+                                             cmap=grey)
+                axes[c, 2 * task + 2].imshow(preds[head][i, :, :, c],
+                                             cmap=grey)
+            axes[c, 0].set_ylabel(f"Class {c}")
+        for title, ax in zip(VIZ_TITLES, axes[0]):
+            ax.set_title(title)
+        plt.savefig(os.path.join(args.output_path, f"pred{i}_classes.jpg"))
+        plt.close(fig1)
+
+        fig2, (ax1, ax2, ax3) = plt.subplots(nrows=1, ncols=3,
+                                             figsize=(10, 5))
+        ax1.set_title("Original")
+        ax1.imshow(pv["img"])
+        ax2.set_title("Pred HSV in RGB")
+        ax2.imshow(pv["rgb"])
+        ax3.set_title("Difference between both")
+        ax3.imshow(pv["diff"], cmap=grey)
+        plt.savefig(os.path.join(args.output_path, f"pred{i}_color.jpg"))
+        plt.close(fig2)
 
 
 if __name__ == "__main__":

@@ -5,11 +5,12 @@ argmax -> row-major reconstruction. Patches go through the model in
 batches; the production path (`make_seg_ids_fn`) uploads uint8 pixels,
 normalizes and argmaxes on the device and brings back uint8 ids only.
 
-`predict_patches` and `predict_scene` take `group=` (a
-parallel.mesh.DataGroup; the reference's `mesh`, sliding.py:124-263):
-every rank calls them with the same patches and apply_fn on its own card,
-each batch of the patch grid is sharded over the ranks, and the ranks'
-host outputs are gathered, so every rank returns what one rank would.
+`predict_patches`, `predict_scene` and `predict_scene_overlap` take
+`group=` (a parallel.mesh.DataGroup; the reference's `mesh`,
+sliding.py:124-263): every rank calls them with the same patches and
+apply_fn on its own card, each batch of the patch grid is sharded over the
+ranks, and the ranks' host outputs are gathered, so every rank returns
+what one rank would.
 """
 
 import numpy as np
@@ -99,6 +100,15 @@ def _gather(out, group):
     return cat(out)
 
 
+def _padded(chunk, batch_size):
+    """A tail chunk padded to batch_size rows by repeating its last patch,
+    and the count of pads."""
+    pad = batch_size - chunk.shape[0]
+    if pad:
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+    return chunk, pad
+
+
 def predict_patches(apply_fn, patches, batch_size=32, device_post=None,
                     group=None):
     """Run apply_fn over (N, P, P, C) patches in batches of batch_size,
@@ -113,10 +123,7 @@ def predict_patches(apply_fn, patches, batch_size=32, device_post=None,
         batch_size = max(batch_size // group.size, 1) * group.size
     outs = []
     for i in range(0, n, batch_size):
-        chunk = patches[i:i + batch_size]
-        pad = batch_size - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+        chunk, pad = _padded(patches[i:i + batch_size], batch_size)
         out = apply_fn(np.ascontiguousarray(shard_batch(chunk, group)))
         if device_post is not None:
             out = device_post(out)
@@ -161,13 +168,25 @@ def _grid_starts(extent, patch_size, stride):
     return starts
 
 
+def _seg_probs_f32(out):
+    """On-device post head: the f32 seg probabilities (a dict or a
+    tensor)."""
+    return (out["seg"] if isinstance(out, dict) else out).float()
+
+
 def predict_scene_overlap(apply_fn, image, patch_size, stride, batch_size=32,
-                          multitask=True):
+                          multitask=True, group=None):
     """Overlap-averaged whole-scene segmentation: windows every `stride`
-    pixels, their seg softmax summed into a scene canvas that stays on the
-    device, the class map the argmax of the mean. The scene is cropped to
+    pixels, their seg softmax summed into a scene canvas in window order,
+    the class map the argmax of the mean. The scene is cropped to
     patch_size multiples first, so stride == patch_size is the plain chop.
-    Returns (class_map (H', W') uint8, mean probabilities (H', W', C))."""
+    Without a group the canvas stays on the device. With `group` (the
+    reference's mesh=, sliding.py:173) the windows go through
+    predict_patches(group=), each rank forwarding its rows of every batch,
+    and every rank folds the gathered probabilities on the host in the
+    same window order: the same f32 sums, so each returns what one
+    process returns from the same forward batches. Returns (class_map
+    (H', W') uint8, mean probabilities (H', W', C))."""
     image = np.asarray(image)
     Hc = image.shape[0] // patch_size * patch_size
     Wc = image.shape[1] // patch_size * patch_size
@@ -177,16 +196,25 @@ def predict_scene_overlap(apply_fn, image, patch_size, stride, batch_size=32,
     patches = np.stack([image[y:y + patch_size, x:x + patch_size]
                         for y, x in positions])
 
+    if group is not None:
+        probs = predict_patches(apply_fn, patches, batch_size,
+                                device_post=_seg_probs_f32, group=group)
+        batches = [(torch.from_numpy(probs), positions)]
+    else:
+        # the tail batch padded as predict_patches pads it: the same
+        # forward batches as a group's
+        batches = ((_seg_probs_f32(apply_fn(np.ascontiguousarray(
+            _padded(patches[i:i + batch_size], batch_size)[0]))),
+                    positions[i:i + batch_size])
+                   for i in range(0, len(patches), batch_size))
     canvas = count = None
-    for i in range(0, len(patches), batch_size):
-        out = apply_fn(np.ascontiguousarray(patches[i:i + batch_size]))
-        probs = (out["seg"] if multitask else out).float()
+    for probs, pos in batches:
         if canvas is None:
             canvas = torch.zeros((Hc, Wc, probs.shape[-1]),
                                  dtype=torch.float32, device=probs.device)
             count = torch.zeros((Hc, Wc), dtype=torch.float32,
                                 device=probs.device)
-        for p, (y, x) in zip(probs, positions[i:i + batch_size]):
+        for p, (y, x) in zip(probs, pos):
             canvas[y:y + patch_size, x:x + patch_size] += p
             count[y:y + patch_size, x:x + patch_size] += 1.0
     mean = (canvas / count[..., None]).cpu().numpy()

@@ -11,10 +11,29 @@ The module is called on NCHW (channels_last) tensors, the model's inside
 layout, and hands NHWC views to ops/fused_bn.py.
 """
 
+import contextlib
+import contextvars
+
 import torch
 from torch import nn
 
 from ..ops.fused_bn import batch_norm_act, bn_affine, bn_apply, bn_stats
+
+_FROZEN = contextvars.ContextVar("resuneta_torch_bn_frozen", default=False)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(frozen=True):
+    """Within (where `frozen`): train-mode BNs normalise with the batch
+    statistics as always but leave their running buffers as they are. A
+    rematerialised block's rerun in the backward runs under it
+    (models/resuneta.py `checkpointed`), so the buffers move once a
+    step."""
+    token = _FROZEN.set(frozen)
+    try:
+        yield
+    finally:
+        _FROZEN.reset(token)
 
 
 def nhwc(x):
@@ -44,6 +63,8 @@ class BatchNorm(nn.Module):
         given `stats` (a ResBlock's branches share their input's), and the
         running buffers' update from them (norm.py:48-60)."""
         mean, var = bn_stats(nhwc(x)) if stats is None else stats
+        if _FROZEN.get():
+            return mean, var
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)

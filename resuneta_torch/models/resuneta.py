@@ -63,17 +63,65 @@ memory format (the same bytes). Params and BN statistics are float32; the
 compute dtype is `dtype`.
 """
 
+import contextlib
+import contextvars
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..device import resolve_device
 from ..ops import convseg
 from ..ops import dense as dops
 from ..ops.fused_bn import bn_apply, bn_stats
-from .norm import BatchNorm, nhwc
+from ..parallel import axis
+from .norm import BatchNorm, nhwc, running_stats_frozen
+
+_REMAT = contextvars.ContextVar("resuneta_torch_remat", default=None)
+
+
+@contextlib.contextmanager
+def remat(policy):
+    """Within: each block that a train-mode forward hands to `checkpointed`
+    runs under non-reentrant torch.utils.checkpoint with the selective
+    `policy` (a create_selective_checkpoint_contexts policy function;
+    train/steps.py SAVE_CONVS), the counterpart of the reference's
+    jax.checkpoint of the forward (steps.py:151-152)."""
+    token = _REMAT.set(policy)
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
+
+
+def checkpointed(fn, *args, **kw):
+    """fn(*args, **kw); inside `remat` with grad on, under checkpoint: the
+    ops `policy` saves keep their outputs, the rest is freed and rerun
+    just before the block's backward. The rerun sees the data axis of the
+    forward (the backward may run on autograd's thread, where the step's
+    context is not set), so sync-BN reduces over the same ranks again,
+    and it leaves the BN running buffers alone (updated once, by the
+    forward)."""
+    policy = _REMAT.get()
+    if policy is None or not torch.is_grad_enabled():
+        return fn(*args, **kw)
+    group = axis.current_group()
+    runs = []
+
+    def run(*a):
+        rerun = bool(runs)
+        runs.append(True)
+        with axis.data_axis(group), running_stats_frozen(rerun):
+            return fn(*a, **kw)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, policy))
 
 
 def _glorot_uniform(shape, generator):
@@ -205,7 +253,10 @@ class ResBlockA(nn.Module):
     (resuneta.py:306-341, _generic). Branch i owns BatchNorm_{2i}, Conv_{2i},
     BatchNorm_{2i+1}, Conv_{2i+1}. In train mode every branch's first BN
     takes the block input's statistics from one shared pass. segment_mode,
-    fwd_wide and bwd_wide route the segments (Conv)."""
+    fwd_wide and bwd_wide route the segments (Conv). A subclass with
+    `identity = False` sums the branches alone (variants.ResBlockV1)."""
+
+    identity = True
 
     def __init__(self, features, dilation_rates, dtype=torch.float32,
                  generator=None, segment_mode="1", fwd_wide=False,
@@ -222,7 +273,7 @@ class ResBlockA(nn.Module):
 
     def forward(self, x):
         shared = bn_stats(nhwc(x)) if self.training else None
-        out = x
+        out = x if self.identity else None
         for i in range(len(self.dilation_rates)):
             b = x
             for j in (2 * i, 2 * i + 1):
@@ -233,7 +284,7 @@ class ResBlockA(nn.Module):
                     b = conv(b, bn_raw=bn(b, stats=stats, return_raw=True))
                 else:
                     b = conv(b, prologue=bn.affine())
-            out = out + b
+            out = b if out is None else out + b
         return out
 
 
@@ -439,6 +490,9 @@ class ResUnetA(nn.Module):
         return "0"
 
     def forward(self, x):
+        """Under `remat` each ResBlock, PSP, UpSampleConv,
+        Combine and the heads are a `checkpointed` block; the stem and the
+        stride-2 convs, whose outputs are kept anyway, are not."""
         dense = self.uses_dense_trunk(x.shape[1], x.shape[2])
         tail = self.tail_mode(x.shape[1], x.shape[2])
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last
@@ -450,22 +504,21 @@ class ResUnetA(nn.Module):
                 # the dense trunk's stride-2 downsamples: C < 256 in
                 x = conv.dense([(x, False, 1)]) if dense and i <= 3 \
                     else conv(x)
-            x = getattr(self, f"ResBlockA_{i}")(x)
+            x = checkpointed(getattr(self, f"ResBlockA_{i}"), x)
             skips.append(x)
-        x = self.PSPPooling_0(x)
+        x = checkpointed(self.PSPPooling_0, x)
         for i, skip in enumerate(skips[4::-1]):
             # the dense trunk's shallow decoder: UpSampleConv_{2,3,4}
             # hands Combine the tensor before its x2
             d = dense and i >= 2
-            x = getattr(self, f"UpSampleConv_{i}")(x, dense=d)
-            x = getattr(self, f"Combine_{i}")(x, skip, dense=d,
-                                              ups=2 if d else 1)
-            x = getattr(self, f"ResBlockA_{6 + i}")(x)
-        x_comb = self.Combine_5(x, c1, dense=tail != "0")
-        x_psp = self.PSPPooling_1(x_comb, dense=tail != "0")
-        if tail == "1":
-            return self._fused_heads(x_comb, x_psp)
-        return self._heads(x_comb, x_psp)
+            x = checkpointed(getattr(self, f"UpSampleConv_{i}"), x, dense=d)
+            x = checkpointed(getattr(self, f"Combine_{i}"), x, skip,
+                             dense=d, ups=2 if d else 1)
+            x = checkpointed(getattr(self, f"ResBlockA_{6 + i}"), x)
+        x_comb = checkpointed(self.Combine_5, x, c1, dense=tail != "0")
+        x_psp = checkpointed(self.PSPPooling_1, x_comb, dense=tail != "0")
+        heads = self._fused_heads if tail == "1" else self._heads
+        return checkpointed(heads, x_comb, x_psp)
 
     def _heads(self, x_comb, x_psp):
         """resuneta.py:659-699; outputs are NHWC float32."""

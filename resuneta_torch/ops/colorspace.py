@@ -1,12 +1,13 @@
-"""RGB -> HSV in OpenCV's 8-bit convention, on the device
-(resuneta_tpu/ops/colorspace.py:29-76, 104-127).
+"""RGB <-> HSV in OpenCV's 8-bit convention, on the device
+(resuneta_tpu/ops/colorspace.py:29-127).
 
 The reference makes the colour head's labels with
 cv2.cvtColor(img, cv2.COLOR_RGB2HSV) on uint8 patches (H in [0, 179], S and
 V in [0, 255]) and normalises by [179, 255, 255]. `rgb_to_hsv_cv2` is
 OpenCV's fixed-point arithmetic (hsv_shift = 12, round-half-even division
 tables computed, not looked up) in exact int32, so it is bit-identical to
-cv2 and to the JAX package.
+cv2 and to the JAX package. `hsv_to_rgb_cv2` is the test CLI's render of
+the colour head (test_ISPRS.py:398-399, cv2.COLOR_HSV2RGB), in f32.
 """
 
 import torch
@@ -45,6 +46,33 @@ def rgb_to_hsv_cv2(rgb):
     h = (h_num * hdiv + half) >> _HSV_SHIFT
     h = torch.where(h < 0, h + 180, h)
     return torch.stack([h, s, v], dim=-1).to(torch.float32)
+
+
+def hsv_to_rgb_cv2(hsv):
+    """(..., 3) cv2-style HSV (H in [0, 180), S and V in [0, 255]) -> RGB
+    in [0, 255], float32, in the reference's order of operations and
+    branches (colorspace.py:79-102): the sector floor(H*2/60) % 6 picks
+    the (r, g, b) of (c, x, 0) by OpenCV's table."""
+    hsv = hsv.to(torch.float32)
+    h = hsv[..., 0] * 2.0                       # degrees
+    s = hsv[..., 1] / 255.0
+    v = hsv[..., 2]
+    c = v * s
+    hp = h / 60.0
+    x = c * (1.0 - torch.abs(torch.remainder(hp, 2.0) - 1.0))
+    m = v - c
+    zero = torch.zeros_like(c)
+    idx = torch.floor(hp).to(torch.int32) % 6
+    # the reference's select chain: sector -> (r, g, b)
+    table = ((c, x, zero), (x, c, zero), (zero, c, x), (zero, x, c),
+             (x, zero, c), (c, zero, x))
+    rgb = []
+    for ch in range(3):
+        out = zero
+        for k in range(5, -1, -1):
+            out = torch.where(idx == k, table[k][ch], out)
+        rgb.append(out + m)
+    return torch.stack(rgb, dim=-1)
 
 
 def standardize_per_sample(x):

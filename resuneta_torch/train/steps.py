@@ -17,15 +17,46 @@ gradients are all-reduced to their mean through one flat buffer (the
 reference's pmean of the gradients, steps.py:165-168); the metric row
 averages the losses and the accuracy and sums the confusion counts over the
 ranks (steps.py:62-78). Every rank then holds the same parameters.
+
+Rematerialisation (`remat=True`; the reference's jax.checkpoint of the
+forward under SAVE_CONVS, steps.py:31-40, :151-152): each block of the
+forward (models/resuneta.py `checkpointed`: the ResBlocks, PSPs,
+UpSampleConvs, Combines and the heads) runs under non-reentrant
+torch.utils.checkpoint with the selective policy `SAVE_CONVS`, which keeps
+the outputs of the convolutions and pools that run as PyTorch ops and the
+BN moments, and frees everything elementwise (BN applies, ReLUs, residual
+sums, concats, upsamples, the f32 copies the BN statistics read) to be
+recomputed just before the block's backward. The hand-written kernels'
+outputs (K1, K3, K4 on the card) are not PyTorch ops: their forwards run
+again in the rerun. The rerun leaves the BN running buffers alone and
+reduces sync-BN's moments over the same ranks again, so the step's numbers
+are those of the step without remat; its memory is less.
 """
 
+import contextlib
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from ..device import resolve_device
 from ..metrics import binary_counts, categorical_accuracy
+from ..models.resuneta import remat as remat_scope
 from ..parallel import axis
+
+# the ops whose outputs a rematerialised block keeps (the reference's
+# _save tags, models/resuneta.py:44-51: conv and pool outputs, BN
+# statistics)
+SAVED_OPS = (torch.ops.aten.convolution.default,
+             torch.ops.aten.max_pool2d_with_indices.default,
+             torch.ops.aten.mean.dim)
+
+
+def SAVE_CONVS(ctx, op, *args, **kwargs):
+    """The selective checkpoint policy of remat=True: keep SAVED_OPS'
+    outputs, recompute every other op."""
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_OPS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
 
 METRICS_MULTITASK = [
     "loss", "seg_loss", "bound_loss", "dist_loss", "color_loss",
@@ -88,7 +119,8 @@ def _on(batch, dev):
 
 
 def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
-                    preprocess=None, device=None, group=None):
+                    preprocess=None, device=None, group=None,
+                    remat: bool = False):
     """Returns train_step(state, batch) -> (state, metrics_row).
 
     batch: 'image' plus the label heads ('seg' [+ 'bound', 'dist',
@@ -99,7 +131,8 @@ def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
     optimizer and returns the row of the forward's metrics. The parameters'
     gradients (over a group: their mean over the ranks) stay in `.grad`
     until the next step. With `group`, `batch` is this rank's rows of the
-    global batch (parallel.mesh.shard_batch)."""
+    global batch (parallel.mesh.shard_batch). `remat` rematerialises the
+    forward's blocks under SAVE_CONVS (module doc)."""
     dev = resolve_device(device)
 
     def train_step(state, batch):
@@ -108,7 +141,9 @@ def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
                 batch, dev)
             model = state.model
             model.train()
-            outputs = model(batch["image"])
+            with remat_scope(SAVE_CONVS) if remat else \
+                    contextlib.nullcontext():
+                outputs = model(batch["image"])
             total, per_head = _losses(loss_fns, loss_weights, multitasking,
                                       outputs, batch)
             state.optimizer.zero_grad(set_to_none=True)

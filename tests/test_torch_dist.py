@@ -5,9 +5,12 @@ whole batch, and the multihost helpers against the JAX package's.
 - pmean/psum, bn_stats and tanimoto_dual_loss over 2 ranks, values and
   gradients, against the same functions of the whole batch in one process:
   f32 sums of 4 rows and 4 rows against sums of 8, within 1e-6;
-- predict_patches sharded over 2 ranks against one process running the
-  same forward batches: the ids bit for bit, with a padded tail batch,
-  and every rank returning the whole result;
+- predict_patches and predict_scene_overlap sharded over 2 ranks against
+  one process running the same forward batches: the ids, the overlap map
+  and its mean probabilities bit for bit, with a padded tail batch, and
+  every rank returning the whole result;
+- the 64 px d6 step over the ranks with remat=True equal to the step
+  without it, bit for bit (one spawn with the inference cases);
 - the multihost helpers bit for bit against resuneta_tpu.parallel.multihost;
 - the group's set-up refusing what it must (a backend not named, NCCL on
   the CPU, gloo on a card unasked), a barrier's timeout, a rank's failure
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from resuneta_torch import losses
+from resuneta_torch.models import ResUnetA
 from resuneta_torch.ops.fused_bn import bn_stats
 from resuneta_torch.parallel import init_group, launch, multihost, \
     shard_batch
@@ -103,14 +107,34 @@ def test_tanimoto_dual_loss_takes_the_global_volumes(collectives):
     assert abs(alone.item() - got[0]["tanimoto"][0].item()) > 1e-3
 
 
-def test_predict_patches_sharded_matches_one_process(tmp_path):
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """One spawn of two ranks for the sharded inference and the
+    rematerialised step over the group: 7 patches of 32 px at batch 4; an
+    80 x 96 scene in windows of 32 px every 16 px (3 x 5 = 15 windows, the
+    tail batch of 3 padded to 4); the 64 px d6 SGD step on one row a
+    rank."""
+    rng = np.random.default_rng(3)
+    patches = rng.standard_normal((7, 32, 32, 4)).astype(np.float32)
+    scene = rng.standard_normal((80, 96, 4)).astype(np.float32)
+    tmp = tmp_path_factory.mktemp("sharded")
+    weights = tmp / "weights.pt"
+    model = ResUnetA(5, img_size=64, device="cpu",
+                     generator=torch.Generator().manual_seed(2))
+    torch.save(model.state_dict(), weights)
+    raw = {"image_u8": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+           "label_ids": rng.integers(0, 5, (2, 64, 64), dtype=np.uint8),
+           "aug": np.array([0, 3])}
+    return patches, ranks.run_ranks(ranks.sharded_patches, tmp, patches, 4,
+                                    scene, 16, (str(weights), raw, 1e-3))
+
+
+def test_predict_patches_sharded_matches_one_process(sharded):
     """7 patches at batch 4 over 2 ranks: two rows a rank a batch, the
     tail batch of 3 padded to 4. Each rank's forward batches are the ones
     one process runs at batch 2, so the ids agree bit for bit; every rank
     returns all 7, and the probabilities gathered agree likewise."""
-    rng = np.random.default_rng(3)
-    patches = rng.standard_normal((7, 32, 32, 4)).astype(np.float32)
-    got = ranks.run_ranks(ranks.sharded_patches, tmp_path, patches, 4)
+    _, got = sharded
     for r in got:
         assert r["sharded"].shape == (7, 32, 32)
         assert r["sharded"].dtype == np.uint8
@@ -118,6 +142,39 @@ def test_predict_patches_sharded_matches_one_process(tmp_path):
         assert r["probs"].shape == (7, 32, 32, 3)
     np.testing.assert_array_equal(got[0]["sharded"], got[1]["sharded"])
     np.testing.assert_array_equal(got[0]["probs"], got[1]["probs"])
+
+
+def test_predict_scene_overlap_sharded_matches_one_process(sharded):
+    """predict_scene_overlap(group=): the windows through
+    predict_patches(group=), the canvas folded in window order on every
+    rank. Each rank returns the map and mean probabilities one process
+    returns from the same forward batches (batch 2), bit for bit."""
+    _, got = sharded
+    for r in got:
+        cmap, mean = r["overlap"]
+        assert cmap.shape == (64, 96) and cmap.dtype == np.uint8
+        assert mean.shape == (64, 96, 3)
+        np.testing.assert_array_equal(cmap, r["overlap_alone"][0])
+        np.testing.assert_array_equal(mean, r["overlap_alone"][1])
+    np.testing.assert_array_equal(got[0]["overlap"][1], got[1]["overlap"][1])
+
+
+def test_remat_step_over_the_group_equals_the_plain_step(sharded):
+    """make_train_step(remat=True, group=): each block's rerun in the
+    backward runs sync-BN's pmean again over the same ranks (the group
+    the forward saw, though the backward's thread has no step context)
+    and leaves the running buffers alone, so the step equals the step
+    without remat on every rank, bit for bit."""
+    _, got = sharded
+    for r in got:
+        plain, remat = r["steps"][False], r["steps"][True]
+        np.testing.assert_array_equal(remat["row"], plain["row"])
+        np.testing.assert_array_equal(remat["eval_row"], plain["eval_row"])
+        for k, v in plain["state_dict"].items():
+            assert torch.equal(remat["state_dict"][k], v), k
+        assert remat["counts"][0] == 2 * plain["counts"][0] == 88
+    for k, v in got[0]["steps"][True]["state_dict"].items():
+        assert torch.equal(got[1]["steps"][True]["state_dict"][k], v), k
 
 
 @pytest.mark.parametrize("n,hosts", [(8, 2), (12, 4), (10, 1), (9, 3)])

@@ -5,7 +5,9 @@ data-parallel step as two ranks sharing the card, the 64 px model and train step
 on the card against the CPU plain path (in the default routing and in each
 opt-in mode), one 512 px train step's kernel launches, and the Amazon
 step (64 px, card against the CPU) with K3 and K4 in f32 at its 128 px
-shapes (`-k amazon`). They skip
+shapes (`-k amazon`), the V1 and legacy models' segments on the card and
+the rematerialised step's launches (`-k "v1 or legacy or remat"`). They
+skip
 without a card. This file imports no JAX, so it runs where only PyTorch
 is installed, without the JAX-importing tests/conftest.py:
 
@@ -1192,3 +1194,66 @@ def test_amazon_k4_f32_128px_matches_plain(cuda, k):
     want = poolconv.pool_conv_bwd_reference(x, g, w, k=k)
     for gt, wt in zip(got, want):
         _close(gt, wt, 0)
+
+
+# ----------------------------------------------- the rest of the family
+
+@pytest.mark.gpu
+def test_v1_eval_segments_on_card_match_cpu_plain_path(cuda):
+    """ResUnetAV1 (multitask, 64 px, f32) in eval: its 44 segments
+    (ResBlockV1: ResBlockA without the identity path) through K1 on the
+    card, against the CPU's K1 plain version, TF32 off: every head within
+    chip_smoke.SEG_ATOL (the slice phase's card-vs-CPU limit)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from resuneta_torch.models import ResUnetAV1
+
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (2, 64, 64, 3)).astype(np.float32))
+    model = ResUnetAV1(5, img_size=64, device="cpu",
+                       generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        want = model(x)
+        model.to(cuda)
+        launches = convseg.LAUNCHES
+        with convseg.no_tf32():
+            got = model(x.to(cuda))
+        torch.cuda.synchronize()
+    assert convseg.LAUNCHES - launches == 44
+    for k, v in want.items():
+        err = (got[k].cpu() - v).abs().max().item()
+        assert err <= chip_smoke.SEG_ATOL, (k, err)
+
+
+@pytest.mark.gpu
+def test_legacy_train_step_on_card_matches_cpu_plain_path(cuda):
+    """ResUnetALegacy's 64 px, bs 2, f32 step (Adam 1e-3, single-task
+    Tanimoto): its 32 train segments through K1 and K2 on the card against
+    their plain versions on the CPU, through
+    chip_smoke.legacy_step_card_vs_cpu at chip_smoke.LEGACY_STEP_TOL
+    (STEP_TOL's limits, the last block's set by the legacy model's own
+    order-of-sums noise, as STEP_TOL's was by the d6's)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    got = chip_smoke.legacy_step_card_vs_cpu()
+    assert got["launches"] == {"K1": 32, "K2 calls": 32}
+    assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])
+
+
+@pytest.mark.gpu
+def test_remat_step_on_card_launches_and_matches_cpu(cuda):
+    """make_train_step(remat=True) at 64 px, bs 2, f32 on the dense trunk:
+    the checkpointed blocks' forwards run again in the backward, so 88 K1
+    launches, 21 K3 calls forward and 2 K4 forwards, the rest as the
+    step without remat; the card against the CPU plain path with remat
+    (which equals the CPU step without it bit for bit,
+    tests/test_torch_remat.py) within chip_smoke.STEP_TOL."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    got = chip_smoke.step_card_vs_cpu(threads=False, remat=True)
+    assert got["launches"] == {"K1": 88, "K2": 4 * 44, "K3": 21,
+                               "K3_bwd": 3 * 12, "K4": 2, "K4_bwd": 2,
+                               "K5/K7": 1, "K6": 2, "K9": 0, "K10": 0}
+    assert not got["failed"], (got["card_vs_cpu"], got["tolerance"])

@@ -87,13 +87,13 @@ def kernel_counts():
             boundary.CALLS]
 
 
-def multitask_step(group, weights_path, raw, lr, nc=5):
+def multitask_step(group, weights_path, raw, lr, nc=5, remat=False):
     """One SGD train step of the 64 px multitask ResUnet-a d6 (Tanimoto on
     the four heads, make_device_pipeline) from the weights at
     `weights_path`, on this rank's rows of the raw batch (all of it without
-    a group); then the eval row of the stepped state on the same rows.
-    Returns the rows, the state_dict after the step and the kernel calls
-    of the train step."""
+    a group), rematerialised with `remat`; then the eval row of the
+    stepped state on the same rows. Returns the rows, the state_dict after
+    the step and the kernel calls of the train step."""
     from resuneta_torch import losses
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.models import ResUnetA
@@ -108,7 +108,8 @@ def multitask_step(group, weights_path, raw, lr, nc=5):
     pipe = make_device_pipeline(nc, 1, device="cpu")
     local = shard_batch(raw, group)
     step = make_train_step(losses.make_losses("tanimoto"), heads, True,
-                           preprocess=pipe, device="cpu", group=group)
+                           preprocess=pipe, device="cpu", group=group,
+                           remat=remat)
     before = kernel_counts()
     state, row = step(state, local)
     counts = [a - b for a, b in zip(kernel_counts(), before)]
@@ -197,11 +198,15 @@ def torchrun_rank(rank, module, argv, env, out_dir):
                os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def sharded_patches(group, patches, batch_size):
-    """predict_patches of a small seeded UNet, sharded over the group, and
-    unsharded at the per-rank batch (the same forward batches)."""
+def sharded_patches(group, patches, batch_size, scene, stride, step_args):
+    """predict_patches and predict_scene_overlap of a small seeded UNet,
+    sharded over the group, and unsharded at the per-rank batch (the same
+    forward batches); then multitask_step(*step_args) over the group
+    without and with remat."""
     from resuneta_torch.infer.sliding import (make_apply_fn,
-                                              predict_patches, seg_ids_u8)
+                                              predict_patches,
+                                              predict_scene_overlap,
+                                              seg_ids_u8)
     from resuneta_torch.models import UNet
 
     model = UNet(num_classes=3, in_channels=patches.shape[-1],
@@ -212,7 +217,17 @@ def sharded_patches(group, patches, batch_size):
     alone = predict_patches(fn, patches, batch_size // group.size,
                             device_post=seg_ids_u8)
     probs = predict_patches(fn, patches, batch_size, group=group)
-    return {"sharded": sharded, "alone": alone, "probs": probs}
+    p = patches.shape[1]
+    overlap = predict_scene_overlap(fn, scene, p, stride, batch_size,
+                                    multitask=False, group=group)
+    overlap_alone = predict_scene_overlap(fn, scene, p, stride,
+                                          batch_size // group.size,
+                                          multitask=False)
+    steps = {remat: multitask_step(group, *step_args, remat=remat)
+             for remat in (False, True)}
+    return {"sharded": sharded, "alone": alone, "probs": probs,
+            "overlap": overlap, "overlap_alone": overlap_alone,
+            "steps": steps}
 
 
 def barrier_then_wait(group, rank_late, delay_s, timeout_s):

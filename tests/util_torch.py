@@ -1,9 +1,24 @@
 """Helpers shared by the port's CPU tests (tests/test_torch_*.py)."""
 
+import contextlib
 import os
 
 import pytest
 import torch
+
+
+@contextlib.contextmanager
+def one_thread_under_xdist():
+    """`one_thread` as a context manager, for module-scoped fixtures."""
+    if int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")) <= 1:
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -18,12 +33,5 @@ def one_thread():
     slower). The tests that take this fixture compare integer or
     elementwise results, or hold tolerances set by the order of f32 sums,
     so the thread count moves nothing they check."""
-    if int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")) <= 1:
+    with one_thread_under_xdist():
         yield
-        return
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
