@@ -87,7 +87,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             64 px, bs 2, f32 dense-trunk step, card against the CPU plain
             path, beside the CPU with one thread against many
             (step_card_vs_cpu; the card's step test in
-            tests/test_torch_gpu.py runs the same function).
+            tests/test_torch_gpu.py runs the same function). Its row also
+            holds the device ms a step of PROFILE_STEPS more steps under
+            torch.profiler (resuneta_torch.utils.xprof) and the busy
+            share: that over the median warm step.
 9. train_512, train_1024 - the same step at bench.py's large-patch rows:
             512 px, batch 8, 5 steps, and 1024 px, batch 2, 4 steps,
             without remat: per step the 256 px step's K1-K4 launches, and
@@ -180,10 +183,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
             every card; with one, the row says so. Its row: the readings,
             the step times of rank 0 and of this process (a smoke
             reading: two ranks share one card), the launches by rank.
-17. phase_seconds line, kernels line (K1-K10; the launches count the
-            train_cli, amazon, viz, variants, remat_1024 and dist runs too; K3's and K4's f32_at_128 the 128 px f32 calls, K5's
-            and K6's at_128 the 128^2 planes), then the last line
-            {"ok": true, "device": {...}}.
+17. space  - the train step height-sharded (phase_space): two gloo ranks
+            share this card as a 1 x 2 (data, space) mesh
+            (parallel.make_mesh_2d), each with the 16 rows' band of 128
+            rows, and take dist's 3 SGD steps with K1-K4 off (the step
+            enters convseg.disabled(), the reference's GSPMD routing: NHWC,
+            every 3x3 conv on a halo through the host, the middle PSP's
+            levels on gathered planes) and the pipeline on the gathered
+            whole planes (per step one EDT and one Canny call); held by
+            dist_compare against this process on the 16 rows inside
+            convseg.disabled(). With two cards or more, the same over NCCL
+            at 1 x 2 (halos on the card), with four or more at 2 x 2.
+18. trajectory - the bf16 trajectory gate
+            (resuneta_torch.utils.trajectory): the fixed 64 px multitask
+            workload, 5 Adam steps in bf16 on the card; every loss within
+            BAND of the port's CPU f32 pin.
+19. quickstart - examples/quickstart_torch.py on the card under
+            build/quickstart/: the synthetic 256^2 scene through the
+            preprocess, train (3 epochs, 64 px) and test CLIs; a finite
+            history, the checkpoint, the test's metrics and reconstruction.
+20. phase_seconds line, kernels line (K1-K10; the launches count the
+            train_cli, amazon, viz, variants, remat_1024, dist, space,
+            trajectory and quickstart runs too; K3's and K4's f32_at_128
+            the 128 px f32 calls, K5's and K6's at_128 the 128^2 planes),
+            then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, where torch.cuda.is_available() is false
 or the package is not beside this file.
@@ -316,6 +339,7 @@ K3_UPS_CALLS = sum(any(p[3] > 1 for p in parts) for _, parts, _ in K3_CALLS)
 TOLERANCE = (f"bf16 results: |err| <= {ATOL_OF_MAX}*max|plain| + "
              f"{BF16_ULP}*|plain|; f32 ones: {ATOL_OF_MAX}*max|plain|")
 NHWC_STEPS = 3
+PROFILE_STEPS = 3      # the train phase's steps under torch.profiler
 
 
 def emit(obj):
@@ -1264,12 +1288,15 @@ def kernel_counters(mods):
 
 
 def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
-                batch=TRAIN_BATCH, remat=False, **modes):
+                batch=TRAIN_BATCH, remat=False, profile=None, **modes):
     """`steps` ISPRS train steps at full width from seeded weights, in the
     opt-in `modes` (ResUnetA arguments), rematerialised with `remat`,
     every kernel count set to 0 just before and read just after. Returns
     (the launches and calls by kernel, metric rows, step times, peak
-    memory after the first step, params)."""
+    memory after the first step, params). With a dict `profile`,
+    PROFILE_STEPS more steps after the counts are read, under
+    torch.profiler (utils/xprof.py): their device ms a step and wall ms a
+    step go into it."""
     from resuneta_torch import losses
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.train import create_train_state, make_train_step
@@ -1302,10 +1329,19 @@ def train_steps(models, steps, dense_trunk, mods, patch=PATCH,
         times.append(time.time() - t0)
         rows.append(row.cpu().numpy())
     counts = {name: getattr(m, k) for name, (m, k) in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
     rows = np.stack(rows)
     if not np.isfinite(rows).all():
         fail(f"non-finite metric rows: {rows}")
-    return (counts, rows, times, torch.cuda.max_memory_allocated(),
+    if profile is not None:
+        from resuneta_torch.utils import xprof
+
+        t0 = time.time()
+        profile["device_ms_per_step"] = xprof.capture_device_ms(
+            lambda: step(state, raw), PROFILE_STEPS, torch.cuda.synchronize)
+        profile["profiled_wall_ms_per_step"] = \
+            (time.time() - t0) * 1e3 / PROFILE_STEPS
+    return (counts, rows, times, peak,
             sum(p.numel() for p in model.parameters()))
 
 
@@ -1390,8 +1426,9 @@ def phase_train_large(models, mods, smi, patch, batch, steps):
 
 def phase_train(models, mods, smi):
     # the dense trunk, the card's default routing (dense_trunk=None)
+    prof = {}
     counts, rows, times, peak, params = train_steps(models, TRAIN_STEPS,
-                                                    None, mods)
+                                                    None, mods, profile=prof)
     want = expected_counts(TRAIN_STEPS, True)
     if counts != want:
         fail(f"dense-trunk train counts {counts}, expected {want}")
@@ -1410,8 +1447,14 @@ def phase_train(models, mods, smi):
            "max_memory_allocated_bytes": peak,
            "loss_first": float(rows[0, 0]), "loss_last": float(rows[-1, 0]),
            "row_first": rows[0].tolist(), "row_last": rows[-1].tolist(),
+           **prof, "busy_share": None if prof["device_ms_per_step"] is None
+           else prof["device_ms_per_step"] / (med * 1e3),
+           "busy_share_of": "device ms a step under the profiler over the "
+                            "median warm step without it",
            "card": smi}
     emit(row)
+    if prof["device_ms_per_step"] is None:
+        fail("train: the profile of the step holds no device event")
 
     # the NHWC routing beside it: no K3, no K4
     n_counts, n_rows, n_times, n_peak, _ = train_steps(models, NHWC_STEPS,
@@ -2374,22 +2417,26 @@ DIST_DIR = WORK_DIR / "dist"
 
 
 def dist_steps(group, patch=PATCH, batch=TRAIN_BATCH, steps=DIST_STEPS,
-               dtype=torch.bfloat16):
+               dtype=torch.bfloat16, space=False):
     """`steps` SGD train steps of the ISPRS multitask d6 at full width from
     seeded weights, on this rank's rows of a seeded global batch of
     `batch` (all of it without a group), every kernel count set to 0 just
-    before and read just after. Returns the launches, the metric rows, the
-    step times and the state_dict before and after, on the CPU."""
+    before and read just after. With `space` the group is a SpaceMesh and
+    the rank holds its rows and band (shard_batch_spatial); without a
+    group the steps then run inside convseg.disabled(), the space step's
+    routing. Returns the launches, the metric rows, the step times and the
+    state_dict before and after, on the CPU."""
     from resuneta_torch import losses, models
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.ops import (boundary, convseg, densemm, distance,
                                     poolconv)
-    from resuneta_torch.parallel import shard_batch
+    from resuneta_torch.parallel import shard_batch, shard_batch_spatial
     from resuneta_torch.train import create_train_state, make_train_step
 
     dev = group.device if group is not None else torch.device("cuda")
     rng = np.random.default_rng(SEED + 5)
-    raw = shard_batch({
+    raw = (shard_batch_spatial if space and group is not None else
+           shard_batch)({
         "image_u8": rng.integers(0, 256, (batch, patch, patch, 3),
                                  dtype=np.uint8),
         "label_ids": voronoi_ids(batch, patch, NUM_CLASSES, rng),
@@ -2412,7 +2459,8 @@ def dist_steps(group, patch=PATCH, batch=TRAIN_BATCH, steps=DIST_STEPS,
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.time()
-        state, row = step(state, raw)
+        with convseg.disabled(space):
+            state, row = step(state, raw)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
         rows.append(row.cpu().numpy())
@@ -2511,19 +2559,23 @@ def dist_overlap(group, patch=PATCH, batch=BATCH):
 
 
 def dist_rank(rank, world, backend, init_method, work, patch, batch, steps,
-              dtype, data):
+              dtype, data, mesh_shape=None):
     """One rank of dist_compare: gloo on the one card (ranks share it), or
-    NCCL on the card of its rank. With `data` (the gloo run), also the
+    NCCL on the card of its rank; a rank of a (data, space) mesh of
+    `mesh_shape` where given. With `data` (the gloo run), also the
     one-epoch train_model and the sharded overlap inference. Saves what
     it ran to work/rank<r>.pt."""
-    from resuneta_torch.parallel import destroy_group, init_group
+    from resuneta_torch.parallel import (destroy_group, init_group,
+                                         make_mesh_2d)
 
-    group = init_group(backend, "cuda:0" if backend == "gloo" else
-                       f"cuda:{rank}", rank=rank, world_size=world,
-                       init_method=init_method,
-                       gloo_on_cuda=backend == "gloo")
+    kw = dict(rank=rank, world_size=world, init_method=init_method,
+              gloo_on_cuda=backend == "gloo")
+    dev = "cuda:0" if backend == "gloo" else f"cuda:{rank}"
+    group = init_group(backend, dev, **kw) if mesh_shape is None else \
+        make_mesh_2d(*mesh_shape, backend, dev, **kw)
     try:
-        out = dist_steps(group, patch, batch, steps, dtype)
+        out = dist_steps(group, patch, batch, steps, dtype,
+                         space=mesh_shape is not None)
         out["backend"], out["device"] = group.backend, str(group.device)
         if data is not None:
             out["train_model"] = dist_train_model(group, data, work, patch)
@@ -2535,11 +2587,12 @@ def dist_rank(rank, world, backend, init_method, work, patch, batch, steps,
 
 def dist_compare(backend, work, patch=PATCH, batch=TRAIN_BATCH,
                  steps=DIST_STEPS, dtype=torch.bfloat16, data=None,
-                 ranks=DIST_RANKS):
-    """dist_steps over `ranks` spawned ranks on `backend` against
-    dist_steps in this process on the whole batch, from the same weights
-    and batch: the rows (losses within STEP_TOL's loss_rel, the accuracy
-    within 2e-3, the counts within 2e-3 of the elements, as
+                 ranks=DIST_RANKS, mesh_shape=None):
+    """dist_steps over `ranks` spawned ranks on `backend` (a (data, space)
+    mesh of `mesh_shape` where given: its ranks, and K1-K4 off in both
+    runs) against dist_steps in this process on the whole batch, from the
+    same weights and batch: the rows (losses within STEP_TOL's loss_rel,
+    the accuracy within 2e-3, the counts within 2e-3 of the elements, as
     tests/test_torch_train.py holds them), the SGD update over every
     parameter (grads_rel_l2) and each head leaf (heads_rel_l2), each BN
     running variance, and the running means all at once
@@ -2556,15 +2609,19 @@ def dist_compare(backend, work, patch=PATCH, batch=TRAIN_BATCH,
     weighs nothing in the means' norm."""
     from resuneta_torch.parallel import launch
 
+    space = mesh_shape is not None
+    if space:
+        ranks = mesh_shape[0] * mesh_shape[1]
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.time()
     launch.spawn(dist_rank, ranks, (ranks, backend, launch.rendezvous(
-        str(work)), work, patch, batch, steps, dtype, data), timeout_s=600)
+        str(work)), work, patch, batch, steps, dtype, data, mesh_shape),
+        timeout_s=600)
     spawn_s = time.time() - t0
     got = [torch.load(work / f"rank{r}.pt", weights_only=False)
            for r in range(ranks)]
-    one = dist_steps(None, patch, batch, steps, dtype)
+    one = dist_steps(None, patch, batch, steps, dtype, space=space)
     torch.cuda.empty_cache()
     r0 = got[0]
     failed = []
@@ -2572,7 +2629,9 @@ def dist_compare(backend, work, patch=PATCH, batch=TRAIN_BATCH,
            for k, v in r0["after"].items()) or \
             any(not np.array_equal(g["rows"], r0["rows"]) for g in got[1:]):
         failed.append("ranks_bit_for_bit")
-    want = expected_counts(steps, True, patch, f32=dtype == torch.float32)
+    # the space step: K1-K4 off, the labels' EDT and Canny on whole planes
+    want = expected_counts(steps, False, patch, segments=0) if space else \
+        expected_counts(steps, True, patch, f32=dtype == torch.float32)
     if any(g["counts"] != want for g in got) or one["counts"] != want:
         failed.append("launches")
     rg, rw = r0["rows"].astype(np.float64), one["rows"].astype(np.float64)
@@ -2611,7 +2670,10 @@ def dist_compare(backend, work, patch=PATCH, batch=TRAIN_BATCH,
     failed += [k for k, v in readings.items() if not v < limits[k]]
     worst = sorted(bn_rel, key=bn_rel.get)[-3:]
     return {"backend": backend, "ranks": ranks, "patch": patch,
-            "global_batch": batch, "rows_a_rank": batch // ranks,
+            "mesh": None if not space else {"data": mesh_shape[0],
+                                            "space": mesh_shape[1]},
+            "global_batch": batch, "rows_a_rank": batch // (
+                mesh_shape[0] if space else ranks),
             "dtype": str(dtype).replace("torch.", ""), "steps": steps,
             "readings": readings, "limits": limits, "failed": failed,
             "bn_worst_buffers": {k: {"rel_l2": bn_rel[k], "norm": float(
@@ -2746,6 +2808,119 @@ def dist_cli(data, n_cards):
             "val_loss": history[0]["val"]["loss"]}
 
 
+# the space axis: the train step height-sharded over a (data, space)
+# mesh, as dist_compare holds it; two gloo ranks share this card as 1 x 2,
+# with 2+ cards NCCL at 1 x 2, with 4+ at 2 x 2
+SPACE_DIR = WORK_DIR / "space"
+
+
+def phase_space(smi):
+    """dist_compare over (data, space) meshes at the train phase's shapes
+    (the full-width multitask d6, 256 px, a global batch of 16, bf16, 3
+    SGD steps): each rank's band of 128 (1 x 2) rows, halos and gathers
+    through the host over gloo, on the card over NCCL; against this
+    process on the whole batch in the same routing (K1-K4 off). Fails
+    unless the readings are within STEP_TOL's limits, the ranks agree bit
+    for bit, and each rank launched no K1-K4 and the labels' EDT and
+    Canny on whole planes (expected_counts(3, False, segments=0))."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    runs = [("gloo", (1, 2))]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        runs.append(("nccl", (1, 2)))
+    if n_cards >= 4:
+        runs.append(("nccl", (2, 2)))
+    out = {}
+    for backend, shape in runs:
+        name = f"{backend}_{shape[0]}x{shape[1]}"
+        res = dist_compare(backend, SPACE_DIR / name, mesh_shape=shape)
+        res.pop("ranks_out")
+        if res["failed"]:
+            fail(f"space ({name}): {res['failed']} failed: "
+                 f"{res['readings']} against {res['limits']}")
+        out[name] = res
+    row = {"phase": "space", "runs": out, "card": smi,
+           "cards": n_cards, "seconds": time.time() - t0,
+           "note": "ranks sharing one card over gloo: a smoke reading, not "
+                   "a scaling figure"}
+    emit(row)
+    return row
+
+
+def phase_trajectory(mods, smi):
+    """The bf16 trajectory gate (resuneta_torch/utils/trajectory.py): the
+    fixed 64 px multitask workload, 5 Adam steps in bf16 on the card (the
+    dense trunk, K1-K6 live), every loss within BAND of the port's CPU
+    f32 pin."""
+    from resuneta_torch.utils import trajectory
+
+    counters = kernel_counters(mods)
+    _zero(counters)
+    t0 = time.time()
+    losses = trajectory.run_losses(dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    ok = trajectory.check(losses)
+    row = {"phase": "trajectory", "losses": losses,
+           "reference": trajectory.REFERENCE_LOSSES, "band": trajectory.BAND,
+           "worst": max(abs(l / r - 1.0) for l, r in
+                        zip(losses, trajectory.REFERENCE_LOSSES)),
+           "ok": ok, "dtype": "bfloat16", "seconds": secs,
+           "launches": _read(counters), "card": smi}
+    emit(row)
+    if not ok:
+        fail(f"trajectory: bf16 losses {losses} outside {trajectory.BAND} "
+             f"of {trajectory.REFERENCE_LOSSES}")
+    return row
+
+
+QUICKSTART_DIR = WORK_DIR / "quickstart"
+
+
+def phase_quickstart(mods, smi):
+    """examples/quickstart_torch.py on the card (its defaults: 3 epochs,
+    64 px, stride 32, f32) under build/quickstart/: the packed set, a
+    finite history, the checkpoint, the whole-scene test's metrics and
+    reconstruction."""
+    import importlib.util
+
+    shutil.rmtree(QUICKSTART_DIR, ignore_errors=True)
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", Path(__file__).resolve().parent / "examples" /
+        "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    counters = kernel_counters(mods)
+    _zero(counters)
+    t0 = time.time()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        res = mod.main(["--workdir", str(QUICKSTART_DIR)])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    hist = res["history"]
+    vals = [v for h in hist for sp in ("train", "val")
+            for v in h[sp].values()]
+    ckpt = Path(res["checkpoint"]) / "checkpoint.pt"
+    recon = Path(res["predictions"]) / "pred_seg_reconstructed.jpeg"
+    acc = float(res["metrics"][0])
+    row = {"phase": "quickstart", "seconds": secs,
+           "stage_seconds": res["seconds"], "epochs": len(hist),
+           "train_loss_by_epoch": [h["train"]["loss"] for h in hist],
+           "val_loss_by_epoch": [h["val"]["loss"] for h in hist],
+           "patches_per_s_by_epoch": [h.get("patches_per_sec") for h in hist],
+           "test_accuracy": acc, "checkpoint": ckpt.exists(),
+           "reconstruction": recon.exists(), "launches": _read(counters),
+           "card": smi}
+    emit(row)
+    if len(hist) != 3 or not np.isfinite(vals).all() or not ckpt.exists() \
+            or not recon.exists() or not 0 <= acc <= 100:
+        fail(f"quickstart: history {hist}, checkpoint {ckpt.exists()}, "
+             f"reconstruction {recon.exists()}, accuracy {acc}")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2813,6 +2988,14 @@ def main():
         paths[f"dist_rank{r}"] = {k: v + tm["counts"][k] + dist_ov[r][k]
                                   for k, v in
                                   dist["launches_by_rank"][r].items()}
+    space = timed("space", phase_space, smi)
+    for name, run in space["runs"].items():
+        for r, counts in enumerate(run["launches_by_rank"]):
+            paths[f"space_{name}_rank{r}"] = counts
+    paths["trajectory"] = timed("trajectory", phase_trajectory, mods,
+                                smi)["launches"]
+    paths["quickstart"] = timed("quickstart", phase_quickstart, mods,
+                                smi)["launches"]
     emit({"phase_seconds": phase_s})
 
     def launched(key):

@@ -10,7 +10,10 @@ normalizes and argmaxes on the device and brings back uint8 ids only.
 sliding.py:124-263): every rank calls them with the same patches and
 apply_fn on its own card, each batch of the patch grid is sharded over the
 ranks, and the ranks' host outputs are gathered, so every rank returns
-what one rank would.
+what one rank would. Over a SpaceMesh the patches shard over its data axis
+and the ranks of a space axis run the same rows, as the reference runs a
+mesh with a 'space' axis (sliding.py:134-156); each forward runs on whole
+patches, no height is sharded, so the kernels stay live.
 """
 
 import numpy as np
@@ -117,10 +120,13 @@ def predict_patches(apply_fn, patches, batch_size=32, device_post=None,
     the batch size is rounded to a multiple of the ranks (at least one row
     each, as the reference does, sliding.py:136-140) and each rank runs its
     rows of every batch; all ranks return the whole result. Returns numpy:
-    a dict of arrays for multitask outputs, else an array."""
+    a dict of arrays for multitask outputs, else an array. A SpaceMesh's
+    batch rounds to a multiple of all its ranks and its rows shard over the
+    data axis (module doc)."""
     n = patches.shape[0]
     if group is not None:
         batch_size = max(batch_size // group.size, 1) * group.size
+    rows = getattr(group, "data", group)
     outs = []
     for i in range(0, n, batch_size):
         chunk, pad = _padded(patches[i:i + batch_size], batch_size)
@@ -129,7 +135,7 @@ def predict_patches(apply_fn, patches, batch_size=32, device_post=None,
             out = device_post(out)
         out = _to_host(out)
         if group is not None:
-            out = _gather(out, group)
+            out = _gather(out, rows)
         if pad:
             out = {k: v[:-pad] for k, v in out.items()} \
                 if isinstance(out, dict) else out[:-pad]

@@ -23,18 +23,23 @@ def tanimoto_loss(label, pred):
     it is: the dual passes the predictions there on purpose, and then the
     weights carry gradient. Inside a data-parallel step the volumes are
     the global batch's (pmean over the ranks, losses.py:29-34), and then
-    their gradient goes back through the all-reduce."""
+    their gradient goes back through the all-reduce. Over a space axis
+    each rank holds a band of rows: the sums over H, W add the bands'
+    (psum over space), so every rank of a row computes its whole-image
+    coefficient."""
     label = label.float()
     pred = pred.float()
     smooth = 1e-5
-    vli = axis.pmean(label.sum(dim=(1, 2)).mean(dim=0))  # (C,) volumes
+    # (B, C) sums over H, W: over a space axis the bands' sums added
+    vol, sum_square, sum_product = axis.psum(
+        (label.sum(dim=(1, 2)), (pred * pred + label * label).sum(dim=(1, 2)),
+         (pred * label).sum(dim=(1, 2))), axes=("space",))
+    vli = axis.pmean(vol.mean(dim=0), axes=("data",))  # (C,) volumes
     wli = 1.0 / vli ** 2                            # inf where a volume is 0
     inf = torch.isinf(wli)
     # NiftyNet's handling: an inf weight becomes the largest finite one
     finite = torch.where(inf, torch.zeros_like(wli), wli)
     wli = torch.where(inf, torch.ones_like(wli) * finite.max(), wli)
-    sum_square = (pred * pred + label * label).sum(dim=(1, 2))   # (B, C)
-    sum_product = (pred * label).sum(dim=(1, 2))                 # (B, C)
     numerator = (wli * sum_product).sum(dim=-1)
     denominator = (wli * (sum_square - sum_product)).sum(dim=-1)
     return (numerator + smooth) / (denominator + smooth)

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel import axis
 from .resuneta import Conv
 from .variants import _Named
 
@@ -63,6 +64,7 @@ class ResNet50UNet(_Named):
         self.to(dev)
 
     def forward(self, x):
+        axis.refuse_space("ResNet50UNet")
         x = x.permute(0, 3, 1, 2).to(self.dtype)    # NHWC bytes, channels_last
         conv1 = self.conv1(x)
         skips = [conv1]

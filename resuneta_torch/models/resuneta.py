@@ -56,6 +56,13 @@ arguments here, off by default:
 In eval a BN after a 1x1 conv folds into the conv weights (epilogue). PSP
 pool levels are gated on the build-time img_size, not on the input.
 
+Height-sharded over a space axis (parallel/axis.py; the reference's GSPMD
+over a (data, space) mesh), every tensor is a band of rows: the 3x3 convs
+read halos, the stride-2 1x1 convs and the nearest upsamples stay local,
+a PSP level whose pool is taller than the band runs on the gathered
+planes, and the kernels K1-K4 are off (convseg.disabled), as the
+reference's GSPMD trace has them (resuneta_tpu/parallel/mesh.py:18-36).
+
 Module and parameter names mirror the Flax tree (Conv_0.., ResBlockA_0..,
 BatchNorm_0.., ConvBN_0.., seg1..3) so convert.from_flax maps one onto the
 other. Public layout is NHWC; inside, tensors are NCHW in channels_last
@@ -101,21 +108,24 @@ def remat(policy):
 def checkpointed(fn, *args, **kw):
     """fn(*args, **kw); inside `remat` with grad on, under checkpoint: the
     ops `policy` saves keep their outputs, the rest is freed and rerun
-    just before the block's backward. The rerun sees the data axis of the
-    forward (the backward may run on autograd's thread, where the step's
-    context is not set), so sync-BN reduces over the same ranks again,
-    and it leaves the BN running buffers alone (updated once, by the
-    forward)."""
+    just before the block's backward. The rerun sees the data and space
+    axes and the kernels' `convseg.disabled` scope of the forward (the
+    backward may run on autograd's thread, where the step's context is
+    not set), so sync-BN reduces over the same ranks again and the halos
+    and routes are the forward's, and it leaves the BN running buffers
+    alone (updated once, by the forward)."""
     policy = _REMAT.get()
     if policy is None or not torch.is_grad_enabled():
         return fn(*args, **kw)
     group = axis.current_group()
+    off = convseg.is_disabled()
     runs = []
 
     def run(*a):
         rerun = bool(runs)
         runs.append(True)
-        with axis.data_axis(group), running_stats_frozen(rerun):
+        with axis.data_axis(group), convseg.disabled(off), \
+                running_stats_frozen(rerun):
             return fn(*a, **kw)
 
     return checkpoint(run, *args, use_reentrant=False,
@@ -152,6 +162,10 @@ class Conv(nn.Module):
       closed-form BN apply -> act -> conv;
     * epilogue=(a, b): a following BN's affine folded into the weights,
       conv(x)*a + b == conv with (W*a, bias*a + b), then ReLU if act.
+
+    Under a live space axis (parallel/axis.py) x is a band of rows and a
+    3x3 conv reads axis.halo(x, d): the d rows above and below from the
+    neighbouring bands, zeros past the image, in place of the row padding.
     """
 
     def __init__(self, in_features, features, kernel_size=3, dilation=1,
@@ -200,9 +214,13 @@ class Conv(nn.Module):
             w = w * a[:, None, None, None]
             bias = bias * a + b
         dt = self.dtype
-        y = F.conv2d(x.to(dt), w.to(dt, memory_format=torch.channels_last),
-                     stride=self.stride, padding=d * (self.kernel_size // 2),
-                     dilation=d)
+        x, pad = x.to(dt), d * (self.kernel_size // 2)
+        padding = pad
+        if pad and axis.space_live():
+            # a band of rows: the neighbours' rows in place of the padding
+            x, padding = axis.halo(x, pad), (0, pad)
+        y = F.conv2d(x, w.to(dt, memory_format=torch.channels_last),
+                     stride=self.stride, padding=padding, dilation=d)
         y = y + bias.to(dt)[:, None, None]
         if epilogue is not None and act:
             y = torch.relu(y)
@@ -326,8 +344,16 @@ class PSPPooling(nn.Module):
             return final(None, dense_parts=parts + [(x, False, 1)])
         parts = []
         for i, k in enumerate(self.levels):
+            conv = getattr(self, f"ConvBN_{i}")
+            if k > 1 and x.shape[2] % k:
+                # a band of rows (parallel/axis.py) that holds no whole
+                # k-row window: the level on the gathered planes, the same
+                # on every rank of the space axis, and its band kept
+                y = conv(F.max_pool2d(axis.gather_space(x), k))
+                parts.append(axis.band(_upsample_nearest(y, k)))
+                continue
             p = F.max_pool2d(x, k) if k > 1 else x
-            parts.append(_upsample_nearest(getattr(self, f"ConvBN_{i}")(p), k))
+            parts.append(_upsample_nearest(conv(p), k))
         return final(torch.cat(parts + [x], dim=1))
 
 
@@ -466,7 +492,7 @@ class ResUnetA(nn.Module):
         """The routing of a train-mode forward on H x W input (class
         doc)."""
         if not self.training or self.dense_trunk is False or \
-                self.segment_mode != "1":
+                self.segment_mode != "1" or convseg.is_disabled():
             return False
         if H != W or W % 32 or W < 64:
             return False
@@ -480,7 +506,8 @@ class ResUnetA(nn.Module):
         an explicit mode holds on the dense trunk, and without it where
         the reference's geometry does ((W*32) % 128 == 0, H and W
         multiples of 8); segment modes "0" and "2" and eval give "0"."""
-        if not self.training or self.segment_mode != "1":
+        if not self.training or self.segment_mode != "1" or \
+                convseg.is_disabled():
             return "0"
         dense = self.uses_dense_trunk(H, W)
         if self.dense_tail is None:
@@ -492,7 +519,17 @@ class ResUnetA(nn.Module):
     def forward(self, x):
         """Under `remat` each ResBlock, PSP, UpSampleConv,
         Combine and the heads are a `checkpointed` block; the stem and the
-        stride-2 convs, whose outputs are kept anyway, are not."""
+        stride-2 convs, whose outputs are kept anyway, are not. Under a
+        live space axis x is a band of rows, which must divide into the
+        deepest level (H/32 whole rows a band); the kernels' scope
+        (convseg.disabled, entered by the step) then gives the NHWC
+        routing, and a forced dense trunk or tail raises in training."""
+        axis.check_band(x.shape[1], 32, "ResUnetA")
+        if self.training and convseg.is_disabled() and (
+                self.dense_trunk or self.dense_tail in ("1", "2")):
+            raise ValueError(
+                "dense_trunk=True and dense_tail '1'/'2' run K3/K4, which "
+                "are off inside convseg.disabled() (a space-sharded step)")
         dense = self.uses_dense_trunk(x.shape[1], x.shape[2])
         tail = self.tail_mode(x.shape[1], x.shape[2])
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last

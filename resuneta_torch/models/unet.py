@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel import axis
 from .resuneta import Conv
 
 
@@ -45,6 +46,10 @@ class UNet(nn.Module):
         self.to(dev)
 
     def forward(self, x):
+        """Under a live space axis (parallel/axis.py) x is a band of rows,
+        H/16 whole rows at the deepest level: the 3x3 convs read halos
+        (Conv), the pools and upsamples stay local."""
+        axis.check_band(x.shape[1], 16, "UNet")
         x = x.permute(0, 3, 1, 2).to(self.dtype)   # NHWC bytes, channels_last
         skips = []
         for i in range(5):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel import axis
 from .resuneta import Conv, ResBlockA, _upsample_nearest, checkpointed
 
 
@@ -178,6 +179,7 @@ class ResUnetAV1(_ResUnetBase):
         self.to(dev)
 
     def forward(self, x):
+        axis.refuse_space("ResUnetAV1")
         x = x.permute(0, 3, 1, 2).to(self.dtype)  # NHWC bytes, channels_last
         c1 = x = self.stem(x)
         skips = []
@@ -256,6 +258,7 @@ class ResUnetALegacy(_ResUnetBase):
         self.to(dev)
 
     def forward(self, x):
+        axis.refuse_space("ResUnetALegacy")
         x = x.permute(0, 3, 1, 2).to(self.dtype)
         c1 = x = self.stem(x)
         skips = [checkpointed(self.rb_top, x)]     # c2

@@ -51,9 +51,16 @@ kernel launches (one a call) and `CALLS` K1 wrapper calls on any device;
 card, as the CUDA side reports them) and `BWD_CALLS` their wrapper calls;
 `WIDE_BWD_LAUNCHES` those of them at C = 256 (K9); `BWDONLY_LAUNCHES` the
 launches made by FusedSegmentBwdOnly's backward (K10).
+
+`disabled()` is the reference's scope (convseg.py:184-213): within it
+`available` is False, the model takes its NHWC routing, and K3 and K4
+(ops/densemm.py, ops/poolconv.py) refuse a call. The step enters it over
+a group with a live space axis, where the activations are bands of rows
+(parallel/axis.py), as the reference traces GSPMD programs under it.
 """
 
 import contextlib
+import contextvars
 import ctypes
 
 import torch
@@ -83,6 +90,31 @@ _fn = None
 _bwd_fn = None
 
 
+_DISABLED = contextvars.ContextVar("resuneta_torch_convseg_disabled",
+                                   default=False)
+
+
+@contextlib.contextmanager
+def disabled(off=True):
+    """Within (where `off`, or where an enclosing scope is): K1-K4 off,
+    the segments and 1x1 convs plain PyTorch ops (module doc)."""
+    token = _DISABLED.set(_DISABLED.get() or bool(off))
+    try:
+        yield
+    finally:
+        _DISABLED.reset(token)
+
+
+def is_disabled():
+    return _DISABLED.get()
+
+
+def refuse_if_disabled(what):
+    if _DISABLED.get():
+        raise RuntimeError(f"{what} called inside convseg.disabled(): "
+                           "K1-K4 are off there (a space-sharded step)")
+
+
 def available(W, C, Cout, *, bwd=True, wide=False):
     """The model's routing predicate for the eval (bwd=False) and the train
     (bwd=True) segment: the channel part of the reference's gate
@@ -95,7 +127,9 @@ def available(W, C, Cout, *, bwd=True, wide=False):
     function is the same and only the route differs: with wide=True the
     C = 256 segments at 128x128 (the 1024 px step) take K1 + K9 here,
     where the reference's planner finds no VMEM plan and runs XLA's
-    conv."""
+    conv. False inside `disabled()`."""
+    if _DISABLED.get():
+        return False
     if C <= 128:
         ch_ok = C in (32, 64, 128)
     else:

@@ -39,7 +39,7 @@ import torch
 
 from ..device import check_current_device
 from ..kernels import build
-from .convseg import no_tf32
+from .convseg import no_tf32, refuse_if_disabled
 
 LAUNCHES = 0
 CALLS = 0
@@ -423,7 +423,9 @@ class DenseMM(torch.autograd.Function):
 
 def dense_mm(xs, w, bias, *, acts=None, ups=None, strides=None):
     """Differentiable K3: xs NHWC parts, w (sum cin, cout) f32, bias (cout,)
-    f32 -> (N, H, W, cout) in the parts' dtype."""
+    f32 -> (N, H, W, cout) in the parts' dtype. Raises inside
+    convseg.disabled()."""
+    refuse_if_disabled("dense_mm (K3)")
     acts, ups, strides = _spec(xs, acts, ups, strides)
     spec = {"acts": acts, "ups": ups, "strides": strides}
     return DenseMM.apply(w, bias, spec, *[x.contiguous() for x in xs])

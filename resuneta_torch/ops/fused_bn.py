@@ -9,7 +9,8 @@ reference's closed-form VJP (fused_bn.py:86-130): the ReLU mask is
 recomputed in x's dtype, and dmean, dvar flow on through autograd into
 `bn_stats`, so a statistics pass shared by several applies gets every
 cotangent. Sync-BN (fused_bn.py:44-49): inside a data-parallel step
-(parallel/axis.py) `bn_stats` pmeans the raw moments over the ranks before
+(parallel/axis.py; over a space axis too, every band the same size)
+`bn_stats` pmeans the raw moments over the ranks before
 forming the variance, so every consumer (BnApply, K1's affine, K2's folded
 dmean/dvar through the all-reduce's backward) sees the global batch's
 statistics.

@@ -34,7 +34,7 @@ import torch
 
 from ..device import check_current_device
 from ..kernels import build
-from .convseg import no_tf32
+from .convseg import no_tf32, refuse_if_disabled
 
 LAUNCHES = 0
 CALLS = 0
@@ -237,5 +237,7 @@ class PoolConv(torch.autograd.Function):
 
 def pool_conv(x, w, bias, *, k):
     """Differentiable K4: x (N, H, W, C) NHWC, w (C, cout) f32, bias
-    (cout,) f32 -> (N, H/k, W/k, cout) in x.dtype."""
+    (cout,) f32 -> (N, H/k, W/k, cout) in x.dtype. Raises inside
+    convseg.disabled()."""
+    refuse_if_disabled("pool_conv (K4)")
     return PoolConv.apply(x.contiguous(), w, bias, int(k))

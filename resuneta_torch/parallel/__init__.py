@@ -1,11 +1,14 @@
-"""Data-parallel training and inference across processes, one a card
-(resuneta_tpu/parallel): the data axis of the step's reductions (axis.py),
-the group and its batch sharding (mesh.py), the processes (multihost.py)
-and their start on one host (launch.py). The JAX package's 'space' axis
-(height sharding with halo exchanges) has no counterpart yet."""
+"""Distributed training and inference across processes, one a card
+(resuneta_tpu/parallel): the data and space axes of the step's reductions,
+halos and gathers (axis.py), the groups and their batch sharding (mesh.py:
+the data-parallel DataGroup; the 2-D SpaceMesh of make_mesh_2d, which also
+shards the image height, with halo exchanges), the processes
+(multihost.py) and their start on one host (launch.py)."""
 from . import axis, multihost
-from .mesh import (DataGroup, destroy_group, init_group, replicate_state,
-                   shard_batch)
+from .mesh import (DataGroup, SpaceMesh, destroy_group, init_group,
+                   make_mesh_2d, replicate_state, shard_batch,
+                   shard_batch_spatial, spatial_batch_sharding)
 
-__all__ = ["DataGroup", "axis", "destroy_group", "init_group", "multihost",
-           "replicate_state", "shard_batch"]
+__all__ = ["DataGroup", "SpaceMesh", "axis", "destroy_group", "init_group",
+           "make_mesh_2d", "multihost", "replicate_state",
+           "shard_batch", "shard_batch_spatial", "spatial_batch_sharding"]

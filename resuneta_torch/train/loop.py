@@ -118,6 +118,10 @@ def train_model(config: TrainConfig, state, train_step, eval_step,
     With `group` (a parallel.mesh.DataGroup; train_step and eval_step built
     with it) every rank calls this and trains its shard of each batch."""
     names = METRICS_MULTITASK if config.multitasking else METRICS_SINGLE
+    if getattr(group, "n_space", 1) > 1:
+        raise ValueError("train_model shards rows only: drive a space-"
+                         "sharded step (a SpaceMesh) with its own batches "
+                         "(parallel.mesh.shard_batch_spatial)")
     if group is not None and config.batch_size % group.size:
         raise ValueError(f"batch size {config.batch_size} does not divide "
                          f"over {group.size} ranks")

@@ -18,6 +18,21 @@ reference's pmean of the gradients, steps.py:165-168); the metric row
 averages the losses and the accuracy and sums the confusion counts over the
 ranks (steps.py:62-78). Every rank then holds the same parameters.
 
+Height sharding (`group=` a parallel.mesh.SpaceMesh of n_data x n_space
+ranks with n_space > 1; the reference's GSPMD over a (data, space) mesh,
+steps.py:84-125): each rank holds B/n_data rows and a band of H/n_space
+rows of each (parallel.mesh.shard_batch_spatial). The body runs inside
+both axes, so the models' 3x3 convs read halos and the reductions span
+the axes they must (parallel/axis.py), and inside `convseg.disabled()`,
+so K1-K4 are off and the model takes its NHWC routing, as the reference
+traces GSPMD programs (resuneta_tpu/parallel/mesh.py:18-36). The input
+pipeline needs whole planes (rot90, Canny, the EDT): the step gathers its
+rows' raw uint8 bands over space, runs `preprocess` on the whole planes
+(K5/K6 live) and keeps its band of every head, which is what GSPMD makes
+of the reference's vmapped pipeline. The gradients are averaged and the
+row reduced over every rank. A mesh with n_space == 1 is the data axis
+alone, kernels live.
+
 Rematerialisation (`remat=True`; the reference's jax.checkpoint of the
 forward under SAVE_CONVS, steps.py:31-40, :151-152): each block of the
 forward (models/resuneta.py `checkpointed`: the ResBlocks, PSPs,
@@ -42,6 +57,7 @@ from torch.utils.checkpoint import CheckpointPolicy
 from ..device import resolve_device
 from ..metrics import binary_counts, categorical_accuracy
 from ..models.resuneta import remat as remat_scope
+from ..ops import convseg
 from ..parallel import axis
 
 # the ops whose outputs a rematerialised block keeps (the reference's
@@ -118,6 +134,25 @@ def _on(batch, dev):
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
+def _space_sharded(group):
+    return getattr(group, "n_space", 1) > 1
+
+
+def _model_batch(batch, preprocess, dev, group):
+    """The model's batch of this rank: `preprocess` of the raw batch (or
+    the batch as it is, on dev). Over a space axis the raw bands of 2 or
+    more dimensions are gathered into whole planes first, and the band of
+    every head kept after."""
+    if preprocess is None:
+        return _on(batch, dev)
+    if not _space_sharded(group):
+        return preprocess(batch)
+    whole = {k: axis.gather_space(torch.as_tensor(v), dim=1)
+             if v.ndim >= 2 else v for k, v in batch.items()}
+    return {k: axis.band(v, dim=1) if v.dim() >= 3 else v
+            for k, v in preprocess(whole).items()}
+
+
 def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
                     preprocess=None, device=None, group=None,
                     remat: bool = False):
@@ -131,14 +166,14 @@ def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
     optimizer and returns the row of the forward's metrics. The parameters'
     gradients (over a group: their mean over the ranks) stay in `.grad`
     until the next step. With `group`, `batch` is this rank's rows of the
-    global batch (parallel.mesh.shard_batch). `remat` rematerialises the
+    global batch (parallel.mesh.shard_batch), over a SpaceMesh its rows and
+    band (parallel.mesh.shard_batch_spatial). `remat` rematerialises the
     forward's blocks under SAVE_CONVS (module doc)."""
     dev = resolve_device(device)
 
     def train_step(state, batch):
-        with axis.data_axis(group):
-            batch = preprocess(batch) if preprocess is not None else _on(
-                batch, dev)
+        with axis.data_axis(group), convseg.disabled(_space_sharded(group)):
+            batch = _model_batch(batch, preprocess, dev, group)
             model = state.model
             model.train()
             with remat_scope(SAVE_CONVS) if remat else \
@@ -162,14 +197,14 @@ def make_train_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
 def make_eval_step(loss_fns: Dict, loss_weights: Dict, multitasking: bool,
                    preprocess=None, device=None, group=None):
     """test_on_batch: eval mode (running statistics), no gradients; `group`
-    as in make_train_step (the Tanimoto volumes and the row reduce over
-    the ranks)."""
+    (a DataGroup or a SpaceMesh) as in make_train_step (the Tanimoto
+    volumes and the row reduce over the ranks)."""
     dev = resolve_device(device)
 
     def eval_step(state, batch):
-        with axis.data_axis(group), torch.no_grad():
-            batch = preprocess(batch) if preprocess is not None else _on(
-                batch, dev)
+        with axis.data_axis(group), torch.no_grad(), \
+                convseg.disabled(_space_sharded(group)):
+            batch = _model_batch(batch, preprocess, dev, group)
             model = state.model
             model.eval()
             outputs = model(batch["image"])

@@ -1,15 +1,17 @@
 """Tests of the PyTorch port that need a CUDA card: the kernels (K1 to K9)
 against their plain versions, the mode-"2" segment (K10), the wrappers
 raising on what their kernels do not take and off the current device, the
-data-parallel step as two ranks sharing the card, the 64 px model and train step
-on the card against the CPU plain path (in the default routing and in each
-opt-in mode), one 512 px train step's kernel launches, and the Amazon
-step (64 px, card against the CPU) with K3 and K4 in f32 at its 128 px
-shapes (`-k amazon`), the V1 and legacy models' segments on the card and
-the rematerialised step's launches (`-k "v1 or legacy or remat"`). They
-skip
-without a card. This file imports no JAX, so it runs where only PyTorch
-is installed, without the JAX-importing tests/conftest.py:
+data-parallel step as two ranks sharing the card, and height-sharded as a
+1 x 2 space mesh, with the halo alone (`-k "two_ranks or space or
+halo"`), the device-time reader (`-k xprof`), the 64 px model and train
+step on the card against the CPU plain path (in the default routing and
+in each opt-in mode), one 512 px train step's kernel launches, and the
+Amazon step (64 px, card against the CPU) with K3 and K4 in f32 at its
+128 px shapes (`-k amazon`), the V1 and legacy models' segments on the
+card and the rematerialised step's launches (`-k "v1 or legacy or
+remat"`). They skip without a card. This file imports no JAX, so it runs
+where only PyTorch is installed, without the JAX-importing
+tests/conftest.py:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
@@ -940,6 +942,77 @@ def test_two_ranks_on_the_card_match_one_process(cuda, tmp_path):
                                got["limits"])
     assert got["launches_a_rank"] == chip_smoke.expected_counts(
         2, True, 64, f32=True)
+
+
+@pytest.mark.gpu
+def test_space_step_on_the_card_matches_one_process(cuda, tmp_path):
+    """chip_smoke's space phase at 64 px in f32: two gloo ranks share the
+    card as a 1 x 2 (data, space) mesh, each with the 4 rows' band of 32
+    rows, 2 SGD steps with K1-K4 off (halos and gathers through the
+    host), against the same steps in this process inside
+    convseg.disabled(): the readings within chip_smoke.STEP_TOL's limits,
+    the ranks bit for bit, each rank's launches the labels' alone."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    got = chip_smoke.dist_compare("gloo", tmp_path / "space", patch=64,
+                                  batch=4, steps=2, dtype=torch.float32,
+                                  mesh_shape=(1, 2))
+    assert not got["failed"], (got["failed"], got["readings"],
+                               got["limits"])
+    assert got["launches_a_rank"] == chip_smoke.expected_counts(
+        2, False, 64, segments=0)
+
+
+@pytest.mark.gpu
+def test_halo_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """parallel.axis.halo on CUDA bands of two gloo ranks sharing the card
+    (through the host): each band's halo is the zero-padded plane's rows,
+    d = 31 wider than the 16-row band, and the bands' gradients those of
+    the padded plane."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_dist_ranks
+    from resuneta_torch.parallel import launch
+
+    rows = (1, 3, 31)
+    planes = np.random.default_rng(0).standard_normal(
+        (2, 3, 32, 5)).astype(np.float32)
+    launch.spawn(torch_dist_ranks.card_halo, 2, (launch.rendezvous(
+        str(tmp_path)), str(tmp_path), planes, rows), timeout_s=240)
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    x = torch.tensor(planes, requires_grad=True)
+    for d in rows:
+        xp = torch.nn.functional.pad(x, (0, 0, d, d))
+        for j in range(2):
+            y = xp[:, :, j * 16:j * 16 + 16 + 2 * d]
+            assert torch.equal(got[j]["halo"][d], y.detach()), (d, j)
+            (y * y).sum().backward()
+    torch.testing.assert_close(torch.cat([g["grad"] for g in got], dim=2),
+                               x.grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_xprof_device_ms_is_positive_and_within_the_wall(cuda):
+    """utils.xprof on the card: the device ms a step of a matmul chain is
+    positive and at most the wall ms a step around the capture."""
+    import time
+
+    from resuneta_torch.utils import xprof
+
+    a = torch.randn(2048, 2048, device=cuda)
+
+    def step():
+        b = a
+        for _ in range(8):
+            b = b @ a
+        return b
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ms = xprof.capture_device_ms(step, 5, torch.cuda.synchronize)
+    wall_ms = (time.time() - t0) * 1e3 / 5
+    assert ms is not None and 0 < ms <= wall_ms, (ms, wall_ms)
 
 
 # --------------------------------------------- K3's Hopper kernels (bf16)

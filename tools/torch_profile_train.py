@@ -121,6 +121,7 @@ def main(argv=None):
     from resuneta_torch.data import make_device_pipeline
     from resuneta_torch.models import ResUnetA
     from resuneta_torch.train import create_train_state, make_train_step
+    from resuneta_torch.utils import xprof
 
     torch.backends.cudnn.benchmark = args.cudnn_benchmark
 
@@ -168,14 +169,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         prof_wall_ms = (time.time() - t0) * 1e3 / args.iters
 
-    kernels = {}
-    for ev in prof.events():
-        # device-side user ranges ("Optimizer.step#Adam.step") span kernels
-        # already counted: kernels only
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                "#" not in ev.name:
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
-                ev.device_time_total / 1e3
+    kernels = xprof.op_times_ms(prof)
     busy = sum(kernels.values()) / args.iters
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
 
